@@ -1,22 +1,20 @@
-"""One-command TPU gate for the reduced-precision DCT deviation (DESIGN #6).
+"""One-command gate for a reduced-precision matmul DCT (DESIGN #6).
 
-Round-3 adopted DEFAULT (single-pass bf16) DCT matmuls as the TPU perf
-default after hand-re-measuring every recorded f32 metric; the verdict
-flagged that nothing automated re-runs that set, so a future XLA bf16
-rounding change could silently move a validation. This script IS that
-automation: it re-runs the four metric-bearing drivers under BOTH
-``dct_precision='default'`` (the perf default) and ``'highest'`` (the
+The matmul DCT lowering (``dct_method='matmul'``) at a precision below
+``'highest'`` (on a GPU: TF32 or bf16 passes) perturbs every Neumann
+solve. This script re-runs the four metric-bearing drivers with the matmul
+lowering under ``dct_precision='default'`` and ``'highest'`` (the
 FFT-parity transform), prints the DESIGN #6 table, and exits nonzero if
-any metric leaves its gate.
+any metric leaves its gate. Run it before making a reduced precision the
+default on any device.
 
-Gates (recorded values in parentheses, benchmarks/README.md):
-  * Ghia Re=1000 N=129 RMS < 2.8e-2       (default 2.244e-2 / highest 2.77e-2)
-  * Sugiyama mean dev N=128 t=8 < 0.008   (0.0052 both)
-  * disc-in-TG N=128 |energy drift| < 5% (driver returns percent; -2.9%)
-  * two-disc contact N=64: gap floor > 2R=0.30, 0.60 < minJ < 0.78 (0.685/0.687)
+Gates (CPU f64 values in parentheses, benchmarks/README.md):
+  * Ghia Re=1000 N=129 RMS < 2.8e-2       (2.77e-2)
+  * Sugiyama mean dev N=128 t=8 < 0.008   (0.0053)
+  * disc-in-TG N=128 |energy drift| < 5% (driver returns percent; -2.96%)
+  * two-disc contact N=64: gap floor > 2R=0.30, 0.60 < minJ < 0.78 (0.689)
 
-Runtime: ~8 driver runs, each paying its remote TPU compile — run it
-backgrounded and let it finish (NEVER kill mid-compile, see CLAUDE.md):
+Runtime: ~8 driver runs, each paying its compile:
 
     nohup python benchmarks/dct_validation_gate.py > /tmp/dct_gate.log 2>&1 &
 """
@@ -40,7 +38,7 @@ def run_all(precisions=("default", "highest"), out_root="/tmp/dct_gate_outputs")
     rows = []
     failures = []
     for prec in precisions:
-        ov = {"dct_precision": prec}
+        ov = {"dct_method": "matmul", "dct_precision": prec}
         t0 = time.time()
 
         err1000 = float(run_lid(Re=1000.0, N=129, steady_tol=5e-6,

@@ -1,6 +1,6 @@
 #!/usr/bin/env bash
-# Regenerate the CPU/f64 evidence logs cited in benchmarks/README.md and
-# docs/ROUND2.md (outputs/logs/*.log + outputs/convergence_tg_*/errors.csv).
+# Regenerate the CPU/f64 evidence logs cited in benchmarks/README.md
+# (outputs/logs/*.log + outputs/convergence_tg_*/errors.csv).
 # Serial by design: this box has one CPU core. The convergence studies use
 # per-leg npz caching (--cache), so an interrupted run resumes where it left.
 #

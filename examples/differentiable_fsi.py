@@ -12,16 +12,13 @@ run at mu_s* produces the "observed" final velocity field; starting from a
 polishes to sub-percent recovery (the misfit has an exact zero-residual
 root — the observation came from this same model).
 
-Round 5: mu_s is a TRACED PARAMETER of one pre-built step
+mu_s is a TRACED PARAMETER of one pre-built step
 (``make_diff_step(param_names=('mu_s',))`` -> ``dstep(state, t_end,
 {'mu_s': ...})``): ONE compiled program serves every optimisation iterate
-(no per-value retrace), and on TPU the forward runs the FUSED Pallas path —
-the traced scalar reaches the RMT-block kernel as an SMEM operand
-(kernels/rmt_block.py) while the VJP comes from the machine-identical XLA
-twin (pyrmt_tpu/diff.py).
+(no per-value retrace). The run is float64 on every platform.
 
-    python examples/differentiable_fsi.py          # TPU: fused forward, f32
-    python examples/differentiable_fsi.py --cpu    # CPU: XLA paths, f64
+    python examples/differentiable_fsi.py          # default JAX device
+    python examples/differentiable_fsi.py --cpu    # force the CPU
 """
 import os
 import sys
@@ -34,10 +31,7 @@ apply_cli_platform()
 
 import jax
 
-ON_TPU = jax.default_backend() == "tpu"
-if not ON_TPU:
-    jax.config.update("jax_enable_x64", True)
-DTYPE = None  # set below after x64 config
+jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
 import optax
@@ -51,7 +45,7 @@ from pyrmt_tpu import (
     make_init_state,
 )
 
-DTYPE = jnp.float32 if ON_TPU else jnp.float64
+DTYPE = jnp.float64
 N = 48
 N_STEPS = 60
 MU_TRUE = 0.4
@@ -66,9 +60,6 @@ def phi_disc(X1, X2):
 cfg0 = RMTConfig(
     grid=g, mu_s=MU_TRUE, mu_f=0.02, rho_s=1.0, rho_f=1.0,
     fixed_dt=1.5e-3,  # under the P-wave limit for any mu_s this run visits
-    # method='auto': fused Pallas forward on TPU, XLA on CPU — the diff
-    # layer's XLA twin supplies the VJP either way
-    dct_method="fft" if not ON_TPU else "auto",
 )
 bc = free_slip_box_bc
 
@@ -86,8 +77,8 @@ rollout = make_diff_rollout(dstep, N_STEPS, with_params=True)
 # ground-truth observation — the same compiled program
 obs = rollout(state0, T_END, {"mu_s": jnp.asarray(MU_TRUE, DTYPE)})
 print(f"observed: t={float(obs.t):.4f} after {N_STEPS} steps at "
-      f"mu_s*={MU_TRUE} (backend={jax.default_backend()}, "
-      f"forward={'fused Pallas' if ON_TPU else 'XLA'})")
+      f"mu_s*={MU_TRUE} (device={jax.devices()[0].device_kind}, "
+      f"dtype={jnp.dtype(DTYPE).name})")
 
 
 def loss_fn(theta):

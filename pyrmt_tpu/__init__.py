@@ -1,13 +1,13 @@
-"""pyrmt_tpu — TPU-native (JAX/XLA/Pallas) Reference Map Technique framework.
+"""pyrmt_tpu — JAX/XLA Reference Map Technique framework.
 
 A ground-up rebuild of the capabilities of samanseifi/pyRMT — fully Eulerian
 2D incompressible fluid-structure interaction via the Reference Map Technique
-(Jain, Kamrin & Mani 2019, JCP 399:108922) — designed TPU-first:
+(Jain, Kamrin & Mani 2019, JCP 399:108922) — designed for an accelerator:
 
   * the entire timestep is ONE jitted XLA program over a functional
     ``SimState`` pytree (no host round-trips),
-  * stencils are fused whole-array VPU passes; the narrow-band extrapolation
-    is fixed-kernel convolutions on the MXU,
+  * stencils are fused whole-array elementwise passes; the narrow-band
+    extrapolation is fixed-kernel separable correlations,
   * the Poisson projection is DCT-I/FFT on the XLA FFT path with a
     matrix-free preconditioned CG for variable density (no pyamg),
   * multi-solid FSI is a single vmapped n-solid momentum kernel,
@@ -122,15 +122,6 @@ from pyrmt_tpu.ops.levelset import (  # noqa: E402
     reinitialize_phi_fmm_equivalent as reinitialize_phi_fmm,
 )
 from pyrmt_tpu.io import output_simulation_data  # noqa: E402, F401
-
-# Fused Pallas kernels (TPU defaults; XLA fallbacks remain the CPU and
-# multi-chip paths — see docs/DESIGN.md "Performance model")
-from pyrmt_tpu.kernels.extrapolate_fused import (  # noqa: E402, F401
-    extrapolate_reference_map_fused,
-)
-from pyrmt_tpu.kernels.momentum_rk4 import (  # noqa: E402, F401
-    momentum_rk4_pallas,
-)
 from pyrmt_tpu.ops.poisson import (  # noqa: E402, F401
     dct1_2d_matmul,
     precompute_dct_matrices,

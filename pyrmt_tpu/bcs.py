@@ -23,10 +23,7 @@ def no_slip_lid_bc(u, v, lid_speed=1.0):
 
 
 def make_lid_bc(lid_speed=1.0):
-    bc = functools.partial(no_slip_lid_bc, lid_speed=lid_speed)
-    # static spec consumed by the fused Pallas momentum kernel
-    bc.kernel_spec = ("lid", float(lid_speed))
-    return bc
+    return functools.partial(no_slip_lid_bc, lid_speed=lid_speed)
 
 
 def free_slip_box_bc(u, v):
@@ -39,9 +36,6 @@ def free_slip_box_bc(u, v):
     return u, v
 
 
-free_slip_box_bc.kernel_spec = ("free_slip",)
-
-
 def periodic_bc(u, v):
     """Doubly-periodic overlap-grid wrap: last row/col mirror the first."""
     u = u.at[:, -1].set(u[:, 0]).at[-1, :].set(u[0, :])
@@ -49,13 +43,5 @@ def periodic_bc(u, v):
     return u, v
 
 
-# fused momentum kernel support (round 5): wrap stencils + overlap-identity
-# row handling (kernels/momentum_rk4._apply_bc / widen)
-periodic_bc.kernel_spec = ("periodic",)
-
-
 def noop_bc(u, v):
     return u, v
-
-
-noop_bc.kernel_spec = ("noop",)

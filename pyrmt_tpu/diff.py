@@ -1,42 +1,30 @@
-"""Differentiable step with the FUSED forward (BEYOND REFERENCE).
+"""Differentiable step with per-step recompute (BEYOND REFERENCE).
 
-:func:`sim.make_rollout` documents the baseline gradient story: build the
-step on the XLA compute paths (the fused Pallas kernels define no VJP) and
-reverse-mode AD flows through the whole trajectory. That leaves TPU forward
-speed on the table — the fused RMT-block / momentum kernels are ~3x the XLA
-step (docs/PERFORMANCE.md) but force a config fork between "production
-forward" and "differentiable" runs.
+:func:`sim.make_rollout` documents the baseline gradient story: reverse-mode
+AD flows through the whole trajectory, with ``jax.checkpoint`` per step to
+bound memory. :func:`make_diff_step` gets the same memory bound without a
+remat wrapper, through ``jax.custom_vjp``:
 
-:func:`make_diff_step` closes that fork with ``jax.custom_vjp``:
-
-* **forward** = the config's own step — on TPU that is the fused Pallas
-  path (``rmt_method/momentum_method='auto'``), so rollout *values*, line
-  searches, and forward-only ensemble members run at full fused speed;
-* **backward** = the VJP of the XLA-path step built from the SAME config
-  with only the method knobs flipped (``rmt_method='xla'`` etc.). The two
-  steps are pinned machine-identical (tests/test_pallas.py: 1e-13/1e-14,
-  bitwise for the RMT-block tile skip), so the substituted Jacobian is the
-  true Jacobian up to the same roundoff.
+* **forward** = the config's own step;
+* **backward** = the VJP of that same step, recomputed from the step's
+  inputs.
 
 The residuals saved by the custom VJP are just the step's *inputs* (one
 SimState per step), so a ``lax.scan`` rollout over ``dstep`` gets
 checkpoint-level memory for free — no ``jax.checkpoint`` wrapper needed.
 
 Scope: differentiable w.r.t. ``state`` and ``t_end`` — and, with
-``param_names`` (round 5), w.r.t. the named PHYSICS scalars
-(mu_s/kappa/gamma/rho_s/rho_f): ``dstep(state, t_end, params)`` feeds the
-traced scalars into the fused RMT-block kernel as SMEM operands
-(kernels/rmt_block.py), so the inverse-problem use case
-(examples/differentiable_fsi.py, mu_s recovery) runs the FUSED forward —
-closing round 4's gap where physics-scalar gradients forced the all-XLA
-config (VERDICT r4 weak #7).
+``param_names``, w.r.t. the named PHYSICS scalars
+(mu_s/kappa/gamma/rho_s/rho_f): ``dstep(state, t_end, params)`` takes them
+as a runtime dict, so one compiled program serves every parameter value
+(the inverse-problem use case, examples/differentiable_fsi.py, mu_s
+recovery).
 
 The upstream stack (pyRMT/functions.py) has no gradient story; this module
 is pure JAX-architecture upside.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Callable, Sequence
 
 import jax
@@ -46,68 +34,44 @@ from pyrmt_tpu.sim import SimState, make_step
 
 __all__ = ["make_diff_step", "make_diff_rollout"]
 
-# The method knobs that select Pallas lowerings. Everything else (physics,
-# discretisation, BCs) is shared, so the XLA twin computes the same
-# function to roundoff.
-_XLA_OVERRIDES = dict(
-    rmt_method="xla",
-    momentum_method="xla",
-    extrap_method="xla",
-    projection_method="xla",
-    use_pallas_rhs=False,
-)
-
 
 def make_diff_step(
     cfg,
     velocity_bc: Callable,
     phi_inits: Sequence[Callable] = (),
     dtype=jnp.float32,
-    rmt_block_impl: Callable | None = None,
-    momentum_rk4_impl: Callable | None = None,
     param_names: tuple[str, ...] | None = None,
 ):
-    """Build ``dstep(state, t_end) -> SimState``: fused forward, XLA VJP.
+    """Build ``dstep(state, t_end) -> SimState`` with an input-only-residual
+    VJP (the backward pass recomputes the step).
 
     With ``param_names`` the signature becomes
     ``dstep(state, t_end, params) -> SimState`` where ``params`` is a dict
     of the named physics scalars (sim._TRACEABLE_PARAMS) — differentiable
-    w.r.t. every entry, with the traced scalars reaching the fused kernels
-    as SMEM operands so the forward keeps fused speed.
+    w.r.t. every entry.
 
-    ``rmt_block_impl`` / ``momentum_rk4_impl`` substitute the fused kernel
-    calls in the FORWARD step (same contract as :func:`sim.make_step`) —
-    used by the tests to run the Pallas kernels in interpret mode on CPU.
-
-    The aux diagnostics dict is dropped: on dt-frozen no-op steps the fused
-    and XLA paths report aux from different (discarded) trial computations
-    (sim.py fused-branch comment), so only the state — which IS pinned
-    identical — participates in the differentiable contract.
+    The aux diagnostics dict is dropped: only the state participates in
+    the differentiable contract.
 
     ``variable_rho=True`` works too: the CG projection's ``lax.while_loop``
     is hidden behind an implicit-adjoint ``jax.custom_vjp``
     (ops/poisson.solve_variable_poisson_cg_counted), so the backward pass
     runs one extra PCG solve per step instead of unrolling iterations.
     """
-    fwd_step = make_step(cfg, velocity_bc, phi_inits, dtype=dtype,
-                         rmt_block_impl=rmt_block_impl,
-                         momentum_rk4_impl=momentum_rk4_impl,
-                         traced_params=param_names)
-    xla_step = make_step(dataclasses.replace(cfg, **_XLA_OVERRIDES),
-                         velocity_bc, phi_inits, dtype=dtype,
-                         traced_params=param_names)
+    step = make_step(cfg, velocity_bc, phi_inits, dtype=dtype,
+                     traced_params=param_names)
 
     if param_names is None:
         @jax.custom_vjp
         def dstep(state: SimState, t_end):
-            return fwd_step(state, t_end)[0]
+            return step(state, t_end)[0]
 
         def dstep_fwd(state, t_end):
-            return fwd_step(state, t_end)[0], (state, t_end)
+            return step(state, t_end)[0], (state, t_end)
 
         def dstep_bwd(residuals, ct):
             state, t_end = residuals
-            _, vjp = jax.vjp(lambda s, t: xla_step(s, t)[0], state, t_end)
+            _, vjp = jax.vjp(lambda s, t: step(s, t)[0], state, t_end)
             return vjp(ct)
 
         dstep.defvjp(dstep_fwd, dstep_bwd)
@@ -115,14 +79,14 @@ def make_diff_step(
 
     @jax.custom_vjp
     def dstep(state: SimState, t_end, params):
-        return fwd_step(state, t_end, params)[0]
+        return step(state, t_end, params)[0]
 
     def dstep_fwd(state, t_end, params):
-        return fwd_step(state, t_end, params)[0], (state, t_end, params)
+        return step(state, t_end, params)[0], (state, t_end, params)
 
     def dstep_bwd(residuals, ct):
         state, t_end, params = residuals
-        _, vjp = jax.vjp(lambda s, t, p: xla_step(s, t, p)[0],
+        _, vjp = jax.vjp(lambda s, t, p: step(s, t, p)[0],
                          state, t_end, params)
         return vjp(ct)
 
@@ -135,8 +99,7 @@ def make_diff_rollout(dstep, n_steps: int, with_params: bool = False):
     step — one jitted ``lax.scan`` program, O(n_steps * state) backward
     memory from the custom VJP's input-only residuals (no remat wrapper).
 
-    Values are the fused trajectory; gradients are the XLA twin's,
-    evaluated along it. ``with_params=True`` matches a ``param_names``
+    ``with_params=True`` matches a ``param_names``
     step: ``rollout(state, t_end, params)``.
     """
 

@@ -4,7 +4,7 @@ Capability parity: ``create_grid`` in the reference (pyRMT/functions.py:25-31):
 a node-centred uniform grid on [0,Lx]x[0,Ly]; fields are (Ny, Nx) row-major
 with axis 0 = y, axis 1 = x.
 
-TPU-first notes: the grid is pure metadata plus two coordinate fields. The
+Design notes: the grid is pure metadata plus two coordinate fields. The
 coordinate fields are materialised once (device-resident) and threaded through
 jitted programs as ordinary operands, so every downstream stencil sees static
 shapes.

@@ -9,7 +9,7 @@ Capability parity with pyRMT/functions.py:194-477:
   * 'central2'       : 2nd-order central + SSP-RK3, same banding,
   * dispatcher with the same scheme names.
 
-TPU-first design:
+Design:
   * The semi-Lagrangian backtrace depends only on (a, b), not on the advected
     field, so ``advect_semilagrangian_rk4_multi`` computes departure points
     ONCE and gathers a whole stack of fields — the reference re-runs the full
@@ -93,15 +93,15 @@ def advect_semilagrangian_rk4_multi(qs, a, b, X, Y, dt, dx, dy,
 
 def advect_semilagrangian_rk4_local(qs, a, b, dt, dx, dy, interp="bilinear",
                                     cubic_mask=None):
-    """Gather-free semi-Lagrangian RK4 (TPU fast path).
+    """Gather-free semi-Lagrangian RK4 (the fast path).
 
     Valid whenever the CFL bound guarantees |displacement| < one cell — which
     ``compute_timestep`` enforces (dt <= CFL dx / max|u| with CFL < 1); every
     intermediate velocity sample is a convex combination of grid values, so
     the bound holds at all four RK4 stages. Uses local shift+select sampling
     (pyrmt_tpu.ops.interp.gather_bilinear_local / gather_bicubic_local) —
-    pure VPU work. ``interp`` selects the FINAL field sample ('bilinear' |
-    'bicubic'); stage velocity samples stay bilinear either way.
+    pure elementwise work. ``interp`` selects the FINAL field sample
+    ('bilinear' | 'bicubic'); stage velocity samples stay bilinear either way.
     """
     from pyrmt_tpu.ops.interp import gather_bicubic_local, gather_bilinear_local
 

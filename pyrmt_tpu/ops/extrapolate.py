@@ -6,7 +6,7 @@ Capability parity with ``extrapolate_reference_map``
 known 3x3 neighbour) receives a Gaussian-weighted least-squares PLANE fit
 a + b x + c y over the known cells in its 9x9 window, evaluated at the cell.
 
-TPU-first re-design — the reference kernel is a serial per-cell loop with a
+Re-design — the reference kernel is a serial per-cell loop with a
 scalar Cramer solve; here the whole layer update becomes dense linear algebra:
 
   * The Gaussian weight depends only on the OFFSET (dist^2 <= r^2 with
@@ -14,8 +14,8 @@ scalar Cramer solve; here the whole layer update becomes dense linear algebra:
     vacuous and the weight kernel is a fixed 9x9 array).
   * Fitting in cell-offset coordinates (a + b*di + c*dj; the value at the
     cell centre is just ``a``) makes ALL normal-equation entries fixed-kernel
-    correlations of {known, known*X1, known*X2} — i.e. 2D convolutions that
-    XLA maps onto the MXU. A plane fit is affine-equivariant, so the
+    correlations of {known, known*X1, known*X2} — i.e. fixed 2D correlations
+    (separable, see below). A plane fit is affine-equivariant, so the
     offset-coordinate fit returns exactly the same plane as the reference's
     absolute-coordinate fit (and is far better conditioned in float32).
   * The per-cell 3x3 solve is a branchless vectorised Cramer solve.
@@ -47,8 +47,7 @@ def _kernels_1d(dx, dy, dtype=None):
     The Gaussian weight factorises exactly: w(di,dj) = wx(di) * wy(dj) with
     wx = exp(-(di dx)^2/r^2), wy = exp(-(dj dy)^2/r^2), and every moment
     kernel is an outer product of 1D factors — so each 81-tap 2D correlation
-    becomes two 9-tap 1D passes (an 8x FLOP cut and a much better TPU
-    layout).
+    becomes two 9-tap 1D passes (an 8x FLOP cut).
     """
     offs = np.arange(-_WIN, _WIN + 1, dtype=np.float64)
     r_sq = (4.0 * np.sqrt(dx**2 + dy**2)) ** 2
@@ -93,8 +92,8 @@ def _shift_zero_y(f, k):
 def _corr1d_multi(f, taps_list, shift):
     """Correlate one field with several 9-tap kernels along one axis as
     constant-weighted shift-adds: all kernels share the same 9 shifted reads,
-    so XLA fuses the whole set into a couple of VPU passes — far faster than
-    a grouped conv lowering at these shapes."""
+    so XLA fuses the whole set into a couple of elementwise passes — far
+    faster than a grouped conv lowering at these shapes."""
     accs = [None] * len(taps_list)
     for k in range(-_WIN, _WIN + 1):
         s = shift(f, k)
@@ -276,7 +275,7 @@ def _sparse_layer(X1e, X2e, known, frontier, moments, max_frontier):
     solve, and scatter the accepted fits back. O(frontier * 81) instead of
     O(Ny * Nx * taps) — the CPU-backend fast path (XLA:CPU does not fuse the
     dense shift-add chains, making the dense layer ~100x slower than the
-    same math on TPU). Frontier cells beyond ``max_frontier`` are NOT
+    frontier gather there). Frontier cells beyond ``max_frontier`` are NOT
     updated here; the caller guards with a dense fallback."""
     dtype = X1e.dtype
     Ny, Nx = X1e.shape
@@ -333,8 +332,8 @@ def extrapolate_reference_map_sparse(X1, X2, phi, dx, dy, max_layers,
     frontier ever exceeds the bound, that layer falls back to the dense path
     (lax.cond), so results match the dense op for ANY input (pinned <=1e-12
     in tests/test_extrap.py; the only differences are f64 summation-order
-    rounding). This is the CPU-backend default (``extrap_method='auto'``) —
-    ~100x faster there; on TPU the fused Pallas kernel is the default."""
+    rounding). This is the default (``extrap_method='auto'``); on the CPU
+    backend it is ~100x faster than the dense path."""
     dtype = X1.dtype
     Ny, Nx = X1.shape
     if max_frontier is None:

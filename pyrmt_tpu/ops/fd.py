@@ -5,9 +5,9 @@ Capability parity with the reference's Numba kernel tier
 boundary closures, 3rd-order upwind-biased derivative with 1st-order boundary
 fallback, and the 2nd-order Laplacian with one-sided boundary rows.
 
-TPU-first design: every operator is a whole-array expression built from
+Design: every operator is a whole-array expression built from
 static slices + concatenation, so XLA fuses each one into a single
-VPU-vectorised pass over the (Ny, Nx) grid — no per-cell loops, no gathers.
+vectorised pass over the (Ny, Nx) grid — no per-cell loops, no gathers.
 All operators preserve the input dtype.
 """
 from __future__ import annotations

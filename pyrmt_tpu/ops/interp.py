@@ -7,7 +7,7 @@ robustness contracts pinned by the reference tests
   * non-finite query coordinates yield NaN (never a crash), and
   * huge-but-finite coordinates are clamped BEFORE the float->int conversion.
 
-TPU-first design: one vectorised gather of the 4 (bilinear) / 16 (bicubic)
+Design: one vectorised gather of the 4 (bilinear) / 16 (bicubic)
 stencil corners for ALL query points at once. ``gather_bilinear_multi``
 amortises a single departure-point computation over many advected fields —
 something the reference cannot do (it re-runs the full backtrace per field).
@@ -70,11 +70,11 @@ def gather_bilinear_local(us, sx, sy):
     """Bilinear sampling of a stack ``us`` (K, Ny, Nx) at per-cell DISPLACED
     points (i + sx[j,i], j + sy[j,i]) with |sx|, |sy| < 1 — gather-free.
 
-    TPU-first fast path for semi-Lagrangian advection: the adaptive CFL
+    Fast path for semi-Lagrangian advection: the adaptive CFL
     guarantees the RK4 backtrace never leaves the 3x3 neighbourhood
     (dt * max|u| < CFL * dx, pyRMT-parity compute_timestep), so the 4
     bilinear corners are among the 9 static shifts of the field and the
-    whole interpolation becomes shifts + selects on the VPU — no gather.
+    whole interpolation becomes shifts + selects — no gather.
 
     Displacements are clamped into (-1, 1); queries that would leave the
     domain are clamped to the boundary exactly like the general
@@ -161,9 +161,9 @@ def gather_bicubic_local(us, sx, sy, cubic_mask=None):
     """Bicubic (Catmull-Rom) sampling of a stack ``us`` (K, Ny, Nx) at
     per-cell DISPLACED points (i + sx, j + sy), |sx|, |sy| < 1 — gather-free.
 
-    TPU-first fast path: under the CFL < 1 backtrace bound the 4x4 stencil
+    Fast path: under the CFL < 1 backtrace bound the 4x4 stencil
     around the departure point lies within static ±2 shifts of the field, so
-    the interpolation becomes shifts + selects + cubic arithmetic on the VPU.
+    the interpolation becomes shifts + selects + cubic arithmetic.
     Semantics (index clamping at edges, overshoot clamp to the stencil
     min/max, NaN on non-finite displacements) match ``gather_bicubic_multi``
     exactly: the edge-replicating pads of ``_shift_{x,y}_pad`` reproduce the

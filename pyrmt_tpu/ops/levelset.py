@@ -11,9 +11,9 @@ Reinitialisation methods:
              fully on-device).
   * 'fmm'  : the reference uses scikit-fmm's sequential fast-marching method
              (pyRMT/functions.py:1335-1350), which has no heap-parallel
-             equivalent on TPU. We honour the same behavioural contract
-             (redistance a corrupted SDF to |grad phi|~1 near the front,
-             tolerances from tests/test_reinit.py) with a PARALLEL FAST
+             equivalent on an accelerator. We honour the same behavioural
+             contract (redistance a corrupted SDF to |grad phi|~1 near the
+             front, tolerances from tests/test_reinit.py) with a PARALLEL FAST
              SWEEPING method (Zhao 2005; anti-diagonal parallelisation after
              Detrixhe et al. 2013): frontier cells are frozen at their
              interpolated front distance, then 4 Gauss-Seidel sweep orderings

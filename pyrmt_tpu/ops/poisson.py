@@ -15,9 +15,9 @@ Capability parity with the reference's solver hub
     preconditioner, which is the reference's own fast path at
     pyRMT/functions.py:1234-1237).
 
-TPU-first design: XLA has no native DCT, so DCT-I is computed as the real
-part of an rFFT of the even-symmetric extension (length 2(N-1)) — exactly the
-same transform, O(N log N) on the TPU's FFT path. All solves are pure
+Design: XLA has no native DCT, so DCT-I is computed as the real part of an
+rFFT of the even-symmetric extension (length 2(N-1)) — exactly the same
+transform, O(N log N) on XLA's FFT path (cuFFT on a GPU). All solves are pure
 functions safe to call inside one jitted timestep.
 """
 from __future__ import annotations
@@ -57,15 +57,14 @@ def idct1_2d(x):
     return idct1(idct1(x, axis=-1), axis=-2)
 
 
-# ── DCT-I as an MXU matmul ───────────────────────────────────────────────────
+# ── DCT-I as a dense matmul ──────────────────────────────────────────────
 #
-# XLA's TPU FFT path is far from the roofline at these sizes (the 2(N-1)
-# even-extension length is usually not a power of two), while a dense
-# transform matrix turns each 1D DCT-I pass into one (N, N) x (N, N) matmul
-# on the MXU — the TPU-native way to do a small fixed transform. At N=1024
-# one Neumann solve is 4 matmuls ≈ 8.6 GFLOP, ~0.3 ms on one v5e chip vs
-# ~3 ms for the FFT lowering. Matmuls run at HIGHEST precision so the f32
-# result matches the FFT path to roundoff.
+# The 2(N-1) even-extension length of the FFT lowering is usually not a
+# power of two, while a dense transform matrix turns each 1D DCT-I pass into
+# one (N, N) x (N, N) matmul. At N=1024 one Neumann solve is 4 matmuls
+# ≈ 8.6 GFLOP. Matmuls run at HIGHEST precision so the f32 result matches
+# the FFT path to roundoff. Which lowering is faster depends on the device
+# and N (RMTConfig.dct_method; 'auto' is the FFT).
 
 
 def dct1_matrix(N, dtype=jnp.float32):
@@ -90,7 +89,7 @@ def _dct1_fold_matrices(N, dtype):
     The reflection n -> N-1-n flips the cosine's sign by (-1)^k, so folding
     the input into e_n = x_n + x_{N-1-n} and o_n = x_n - x_{N-1-n} splits the
     (N,N) transform into two independent (~N/2, ~N/2) matmuls — half the
-    MXU FLOPs for the same (bit-different, roundoff-equal) transform:
+    matmul FLOPs for the same (bit-different, roundoff-equal) transform:
     E = C[0::2, :ceil(N/2)] acts on e, O = C[1::2, :floor(N/2)] acts on o.
     """
     C = dct1_matrix(N, dtype)
@@ -108,8 +107,7 @@ def _dct1_inverse_fold_matrices(N, dtype):
     only the top ceil(N/2) rows of each are needed: with s = Ie @ ye and
     a = Io @ yo, z = [s + a ; reverse((s - a)[:floor(N/2)])]. Together with
     ``_dct1_fold_matrices`` this keeps a whole Poisson solve in the fold
-    domain — no interleave/deinterleave relayouts between the matmuls
-    (measured 0.41 -> 0.34 ms/solve at N=1024 on one v5e chip).
+    domain — no interleave/deinterleave relayouts between the matmuls.
     """
     C = dct1_matrix(N, dtype)
     ne = N - N // 2
@@ -129,13 +127,11 @@ def precompute_dct_matrices(Nx, Ny, dtype=jnp.float32):
     return Ey, Oy, Ex, Ox, Iey, Ioy, Iex, Iox
 
 
-# f32 matmul precision for the DCT transforms. The default HIGHEST (6-pass
-# bf16 emulation) keeps the matmul path equal to the FFT path to roundoff —
-# the parity formulation pinned in tests/test_poisson.py. 'high' (3-pass)
-# halves the MXU time; its solution difference vs HIGHEST is ~7e-5 relative
-# (~1e-8 absolute on the headline solve) — below the f32 roundoff of the
-# pressure field itself, and verified not to move any recorded f32
-# validation metric (docs/PERFORMANCE.md). Threaded as an explicit
+# f32 matmul precision for the DCT transforms. The default HIGHEST keeps the
+# matmul path equal to the FFT path to roundoff — the parity formulation
+# pinned in tests/test_poisson.py. Lower precisions (on a GPU: TF32 or bf16
+# passes) trade accuracy for matmul time and are not validated there
+# (docs/DESIGN.md #6). Threaded as an explicit
 # ``precision`` parameter (RMTConfig.dct_precision) so the choice is part
 # of the traced program, not hidden module state.
 _PRECISIONS = {
@@ -180,7 +176,7 @@ def _dct1_rows_folded(x, E, O, precision=None):
 
 
 def dct1_2d_matmul(x, mats, precision=None):
-    """2D unnormalised DCT-I via four half-size MXU matmuls (one even/odd
+    """2D unnormalised DCT-I via four half-size matmuls (one even/odd
     folded pass per axis); same transform as ``dct1_2d`` to roundoff."""
     Ey, Oy, Ex, Ox = mats[:4]
     y = _dct1_rows_folded(x, Ey, Oy, precision)
@@ -261,7 +257,7 @@ def _idct1_2d_from_blocks(Bee, Boe, Beo, Boo, mats, precision=None):
 # even-row factor of the DCT-I matrix IS the DCT-I matrix of size (N+1)/2
 # (C_N[:M, 0::2] == C_M exactly, M=(N+1)/2), so while the half size stays odd
 # each level halves the dominant matmul again. For N-1 a power of two
-# (the preferred 2^k+1 grids, docs/PERFORMANCE.md "Grid-size guidance") the
+# (2^k+1 grids) the
 # 1D-pass FLOPs drop from ~N^2/2 (one fold) toward ~N^2/3. Spectral
 # coefficients stay in recursive fold order end-to-end — the eigenvalue
 # divide uses a host-side permutation instead of any interleave relayout.
@@ -450,16 +446,16 @@ def solve_poisson_dct(rhs_2d, eigenvalues, dct_mats=None, precision=None,
 
     ``dct_mats`` — the (Ey, Oy, Ex, Ox, Iey, Ioy, Iex, Iox) tuple from
     ``precompute_dct_matrices`` — switches the transforms from the rFFT
-    lowering to MXU matmuls (same transform to roundoff). The matmul solve
+    lowering to dense matmuls (same transform to roundoff). The matmul solve
     stays entirely in the even/odd FOLD domain (forward parity blocks,
     eigenvalue divide on parity-sliced eigenvalues, fold-order inverse) —
     no interleave/deinterleave relayouts between the matmuls. The parity
     slicing of the eigenvalues happens HOST-side at trace time whenever
-    ``eigenvalues`` is a concrete (precomputed) array: in-graph f64 strided
-    slices are pathologically slow on the TPU backend.
+    ``eigenvalues`` is a concrete (precomputed) array, so no in-graph f64
+    strided slice is needed.
 
     Passing a ``precompute_dct_plan`` dict instead selects the RECURSIVE
-    fold (odd N only; fewest MXU FLOPs on 2^k+1 grids).
+    fold (odd N only; fewest matmul FLOPs on 2^k+1 grids).
     """
     if isinstance(dct_mats, dict):
         # recursive fold plan (precompute_dct_plan): everything stays in
@@ -468,9 +464,8 @@ def solve_poisson_dct(rhs_2d, eigenvalues, dct_mats=None, precision=None,
         yhat = dct1_2d_rec(rhs_2d, dct_mats, precision)
         perm_y, perm_x = dct_mats["perm_y"], dct_mats["perm_x"]
         if isinstance(eigenvalues, jax.core.Tracer):
-            # Traced eigenvalues pay an IN-GRAPH 2D gather here — on the TPU
-            # backend f64 strided reordering like this is pathologically
-            # slow. sim.py always passes concrete precomputed eigenvalues
+            # Traced eigenvalues pay an IN-GRAPH 2D gather here. sim.py
+            # always passes concrete precomputed eigenvalues
             # (the branch below, permuted host-side at trace time); keep it
             # that way for any hot caller.
             eig = eigenvalues[perm_y][:, perm_x].astype(yhat.dtype)
@@ -651,7 +646,7 @@ def compute_pressure_gradient(p, dx, dy):
     # Built scatter-free (concat + row/col masks): XLA's SPMD partitioner
     # miscompiles the fused scatter-into-zeros formulation at shard
     # boundaries (observed on the 8-device CPU mesh), and masks fuse better
-    # on TPU anyway.
+    # anyway.
     Ny, Nx = p.shape
     jj = jnp.arange(Ny)[:, None]
     ii = jnp.arange(Nx)[None, :]

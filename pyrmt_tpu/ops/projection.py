@@ -47,8 +47,6 @@ def pressure_projection(
     cg_tol=1e-6,
     cg_maxiter=200,
     dct_mats=None,
-    stencil_bc_spec=None,
-    stencil_interpret=False,
     dct_precision=None,
     cg_info=False,
     st_faces=None,
@@ -58,16 +56,12 @@ def pressure_projection(
     Parameters mirror the reference; ``variable_rho`` is the static
     replacement for the runtime ``np.ptp(rho) > 1e-10`` probe. ``rho`` may be
     a scalar or an (Ny, Nx) array in either mode. ``dct_mats`` (optional)
-    routes the Neumann DCT solves through MXU matmuls instead of the FFT
-    lowering. ``stencil_bc_spec`` (a static BC spec like ('lid', 1.0), from
-    the stock BCs' kernel_spec) routes the incremental constant-rho Neumann
-    stencil chains through the fused Pallas passes
-    (kernels/projection_stencils.py) — roundoff-identical to the XLA ops,
-    including the in-kernel velocity BC. ``dct_precision``
-    (None/'highest'/'high') sets the MXU matmul precision of the DCT
-    transforms when ``dct_mats`` is given — see ops/poisson.py. Returns
-    (a, b, p), or (a, b, p, (cg_iters, cg_relres)) when ``cg_info=True``
-    with ``variable_rho=True`` (the counted while-loop PCG; same math as
+    routes the Neumann DCT solves through dense matmuls instead of the FFT
+    lowering. ``dct_precision`` (None/'highest'/'high'/'default') sets the
+    matmul precision of the DCT transforms when ``dct_mats`` is given —
+    see ops/poisson.py. Returns (a, b, p), or
+    (a, b, p, (cg_iters, cg_relres)) when ``cg_info=True`` with
+    ``variable_rho=True`` (the counted while-loop PCG; same math as
     the jax.scipy path, pinned in tests/test_poisson.py).
     """
     if cg_info and not variable_rho:
@@ -77,13 +71,6 @@ def pressure_projection(
             "balanced-force st_faces requires the incremental Neumann "
             "(Rhie-Chow) projection")
     rho = jnp.asarray(rho, dtype=a_star.dtype)
-    use_stencil_kernels = (
-        stencil_bc_spec is not None
-        and bc_type == "neumann"
-        and p_prev is not None
-        and not variable_rho
-        and st_faces is None  # the fused RC-rhs kernel has no face-force path
-    )
 
     if bc_type == "periodic":
         if eigenvalues is None:
@@ -103,24 +90,6 @@ def pressure_projection(
         raise ValueError(f"unknown bc_type {bc_type!r}")
     if eigenvalues is None:
         raise ValueError("neumann projection needs precomputed DCT eigenvalues")
-
-    if use_stencil_kernels:
-        from pyrmt_tpu.kernels.projection_stencils import (
-            grad_correct_pallas,
-            rc_rhs_pallas,
-        )
-
-        d_scalar = dt / jnp.mean(rho)
-        rhs_2d = rc_rhs_pallas(a_star, b_star, p_prev, rho, dt, d_scalar,
-                               dx, dy, interpret=stencil_interpret)
-        p_correction = solve_poisson_dct(rhs_2d, eigenvalues,
-                                         dct_mats=dct_mats,
-                                         precision=dct_precision)
-        a, b = grad_correct_pallas(p_correction, a_star, b_star, rho, dt,
-                                   dx, dy, stencil_bc_spec,
-                                   interpret=stencil_interpret)
-        p = p_prev + p_correction
-        return a, b, p - jnp.mean(p)
 
     if p_prev is not None:
         divU = compute_divergence_rc(

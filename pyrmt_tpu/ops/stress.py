@@ -13,9 +13,9 @@ and ``smoothed_heaviside`` (pyRMT/functions.py:581-592):
   * near-singular cells (|detG| < 1e-10) keep sigma = 0, J = 1 — the
     vectorised equivalent of the reference's ``continue``.
 
-TPU-first design: branchless whole-grid selects; every stencil is a static
-shift, so the kernel fuses into one VPU pass. Stack multiple solids on a
-leading axis and ``jax.vmap`` this function (the reference hand-writes the
+Design: branchless whole-grid selects; every stencil is a static
+shift, so the kernel fuses into one elementwise pass. Stack multiple solids
+on a leading axis and ``jax.vmap`` this function (the reference hand-writes the
 two-solid case instead).
 """
 from __future__ import annotations

@@ -2,13 +2,13 @@
 
 The reference has NO distributed execution of any kind (SURVEY.md section
 2.3) — its only parallelism is Numba threads inside one process. The
-TPU-native scaling axis for a stencil PDE code is SPATIAL domain
-decomposition: shard the (Ny, Nx) grid over a 2D ``jax.sharding.Mesh`` and
-jit the SAME step function with sharding annotations. XLA's SPMD partitioner
-then inserts the communication automatically:
+scaling axis for a stencil PDE code is SPATIAL domain decomposition: shard
+the (Ny, Nx) grid over a 2D ``jax.sharding.Mesh`` and jit the SAME step
+function with sharding annotations. XLA's SPMD partitioner then inserts the
+communication automatically:
 
-  * halo exchanges (collective-permute over ICI) for the <=4-cell stencils
-    and the 9x9 extrapolation convolutions,
+  * halo exchanges (collective-permute) for the <=4-cell stencils and the
+    9x9 extrapolation convolutions,
   * all-to-alls for the DCT/FFT Poisson transforms,
   * psums for the reductions (max|u| in the adaptive dt, means in the
     de-meaned pressure).
@@ -78,258 +78,30 @@ def shard_state(state, mesh: Mesh):
     return jax.tree.map(jax.device_put, state, sh)
 
 
-def _halo_pad_fns(mesh: Mesh, halo: int):
-    """Bidirectional nearest-neighbour ppermute halo exchange over BOTH mesh
-    axes. Returns ``pad(f)`` (rows then, when the column axis is nontrivial,
-    columns of the already row-padded slab — so corner halos carry the
-    diagonal neighbour's data) and ``(ny, nx)``. Edge shards receive zero
-    halos, which the kernels' global valid-masks treat exactly like the
-    domain boundary."""
-    import jax.numpy as jnp
-
-    gy, gx = mesh.axis_names
-    ny, nx = int(mesh.shape[gy]), int(mesh.shape[gx])
-    fwd_y = [(i, i + 1) for i in range(ny - 1)]
-    bwd_y = [(i + 1, i) for i in range(ny - 1)]
-    fwd_x = [(i, i + 1) for i in range(nx - 1)]
-    bwd_x = [(i + 1, i) for i in range(nx - 1)]
-
-    def pad(f):
-        if ny > 1:
-            top = jax.lax.ppermute(f[..., -halo:, :], gy, fwd_y)
-            bot = jax.lax.ppermute(f[..., :halo, :], gy, bwd_y)
-            f = jnp.concatenate([top, f, bot], axis=-2)
-        if nx > 1:
-            left = jax.lax.ppermute(f[..., :, -halo:], gx, fwd_x)
-            right = jax.lax.ppermute(f[..., :, :halo], gx, bwd_x)
-            f = jnp.concatenate([left, f, right], axis=-1)
-        return f
-
-    return pad, (ny, nx)
-
-
-def _unpad(o, halo, ny, nx):
-    if ny > 1:
-        o = o[..., halo:-halo, :]
-    if nx > 1:
-        o = o[..., :, halo:-halo]
-    return o
-
-
-def make_rmt_block_sharded(mesh: Mesh, Ny: int, Nx: int, num_layers: int,
-                           interpret=False):
-    """Per-shard fused Pallas RMT block under shard_map with explicit 2D
-    ICI halo exchange.
-
-    GSPMD cannot partition a Pallas kernel, so the sharded step normally
-    falls back to the composed XLA ops for the whole solid pipeline — giving
-    up the fused kernel's ~1.8x. This wrapper recovers it on an arbitrary
-    (gy, gx) mesh: each device ppermutes ``halo = 4*num_layers + 4``
-    boundary rows AND columns to its mesh neighbours (corner halos ride the
-    column exchange of the row-padded slab), runs the unchanged kernel on
-    its padded slab with the global (row, col) offsets, and slices the halo
-    back off.
-
-    Returns an ``rmt_block_impl`` for ``sim.make_step``. Requires the grid
-    to divide both mesh axes with local extents >= halo and the padded slab
-    to row-tile (see ``rmt_block_sharded_supported``).
-    """
-    gy, gx = mesh.axis_names
-    ny, nx = int(mesh.shape[gy]), int(mesh.shape[gx])
-    ly, lx = Ny // ny, Nx // nx
-    halo = 4 * num_layers + 4
-    field = P(gy, gx)
-    stack = P(None, gy, gx)
-
-    def impl(u, v, X1s, X2s, dt, *, phi_inits, dx, dy, num_layers, w_t,
-             mu_s, kappa, rho_s, rho_f, stress_w_cut=0.0, stress_clamp=0.0,
-             sl_interp="bilinear", sl_guard=None):
-        from pyrmt_tpu.kernels.rmt_block import rmt_block_fused
-
-        def body(u_l, v_l, X1_l, X2_l, dt_l):
-            pad, _ = _halo_pad_fns(mesh, halo)
-            iy = jax.lax.axis_index(gy)
-            ix = jax.lax.axis_index(gx)
-            outs = rmt_block_fused(
-                pad(u_l), pad(v_l), pad(X1_l), pad(X2_l), dt_l,
-                phi_inits=phi_inits, dx=dx, dy=dy, num_layers=num_layers,
-                w_t=w_t, mu_s=mu_s, kappa=kappa, rho_s=rho_s, rho_f=rho_f,
-                stress_w_cut=stress_w_cut, stress_clamp=stress_clamp,
-                sl_interp=sl_interp, sl_guard=sl_guard,
-                row_offset=iy * ly - (halo if ny > 1 else 0), Ny_total=Ny,
-                col_offset=(ix * lx - halo) if nx > 1 else None,
-                Nx_total=Nx if nx > 1 else None,
-                interpret=interpret,
-            )
-            return tuple(_unpad(o, halo, ny, nx) for o in outs)
-
-        return jax.shard_map(
-            body, mesh=mesh,
-            in_specs=(field, field, stack, stack, P()),
-            out_specs=(stack,) * 7 + (field,) * 5,
-            check_vma=False,
-        )(u, v, X1s, X2s, dt)
-
-    return impl
-
-
-def make_momentum_rk4_sharded(mesh: Mesh, Ny: int, Nx: int, interpret=False):
-    """Per-shard fused full-RK4 momentum kernel under shard_map (the
-    momentum twin of make_rmt_block_sharded; 8-cell halo exchange on both
-    mesh axes)."""
-    from pyrmt_tpu.kernels.momentum_rk4 import _HALO
-
-    gy, gx = mesh.axis_names
-    ny, nx = int(mesh.shape[gy]), int(mesh.shape[gx])
-    ly, lx = Ny // ny, Nx // nx
-    halo = _HALO
-    field = P(gy, gx)
-
-    def impl(u, v, p, sxx, sxy, syy, Hf, rho, fx, fy, mkv,
-             dt, dx, dy, mu_f, eta_s, bc_spec):
-        from pyrmt_tpu.kernels.momentum_rk4 import momentum_rk4_pallas
-
-        def body(*args):
-            fields, dt_l = args[:-1], args[-1]
-            pad, _ = _halo_pad_fns(mesh, halo)
-            iy = jax.lax.axis_index(gy)
-            ix = jax.lax.axis_index(gx)
-            u_new, v_new = momentum_rk4_pallas(
-                *[pad(f) for f in fields], dt_l, dx, dy, mu_f, eta_s,
-                bc_spec,
-                row_offset=iy * ly - (halo if ny > 1 else 0), Ny_total=Ny,
-                col_offset=(ix * lx - halo) if nx > 1 else None,
-                Nx_total=Nx if nx > 1 else None,
-                interpret=interpret,
-            )
-            return _unpad(u_new, halo, ny, nx), _unpad(v_new, halo, ny, nx)
-
-        return jax.shard_map(
-            body, mesh=mesh,
-            in_specs=(field,) * 11 + (P(),),
-            out_specs=(field, field),
-            check_vma=False,
-        )(u, v, p, sxx, sxy, syy, Hf, rho, fx, fy, mkv, dt)
-
-    return impl
-
-
-def momentum_rk4_sharded_supported(mesh: Mesh, Ny: int, Nx: int, velocity_bc):
-    from pyrmt_tpu.kernels.momentum_rk4 import _HALO, momentum_rk4_supported
-
-    gy, gx = mesh.axis_names
-    ny, nx = int(mesh.shape[gy]), int(mesh.shape[gx])
-    spec = getattr(velocity_bc, "kernel_spec", None)
-    if Ny % ny or Nx % nx or spec is None:
-        return False
-    if spec[0] == "periodic":
-        # the periodic kernel's wrap halo is not wired through the
-        # shard_map offsets — sharded periodic keeps the XLA path (GSPMD
-        # inserts the wrap collectives itself)
-        return False
-    ly, lx = Ny // ny, Nx // nx
-    if ny > 1 and ly < _HALO:
-        return False
-    if nx > 1 and lx < _HALO:
-        return False
-    return momentum_rk4_supported(
-        velocity_bc, ly + (2 * _HALO if ny > 1 else 0))
-
-
-def rmt_block_sharded_supported(mesh: Mesh, Ny: int, Nx: int,
-                                num_layers: int, S: int):
-    """The sharded fused RMT block needs: the grid to divide both mesh axes,
-    local rows/cols >= the exchange halo, and the padded slab to row-tile."""
-    from pyrmt_tpu.kernels.rmt_block import rmt_block_supported
-
-    gy, gx = mesh.axis_names
-    ny, nx = int(mesh.shape[gy]), int(mesh.shape[gx])
-    if S < 1 or Ny % ny or Nx % nx:
-        return False
-    halo = 4 * num_layers + 4
-    ly, lx = Ny // ny, Nx // nx
-    if ny > 1 and ly < halo:
-        return False
-    if nx > 1 and lx < halo:
-        return False
-    return rmt_block_supported(ly + (2 * halo if ny > 1 else 0),
-                               num_layers, S)
-
-
 def make_sharded_step(cfg, velocity_bc, phi_inits, mesh: Mesh, dtype=None,
-                      rmt_method=None, interpret=None, traced_params=None):
+                      traced_params=None):
     """Jit the FSI step with explicit in/out shardings over ``mesh``.
 
-    The step body is IDENTICAL to the single-chip one — the partitioner owns
-    the collectives. Returns (step_fn, shard_fn).
+    The step body is IDENTICAL to the single-device one — the partitioner
+    owns the collectives. Returns (step_fn, shard_fn).
 
-    ``rmt_method``: 'pallas' runs the fused RMT-block kernel per shard via
-    shard_map + ppermute halo exchange (make_rmt_block_sharded); 'xla' keeps
-    the composed ops (GSPMD inserts the halo exchanges itself); None picks
-    'pallas' on TPU when supported. The fused full-RK4 momentum kernel
-    follows the same choice (make_momentum_rk4_sharded) when the BC carries
-    a kernel_spec. ``interpret`` forces Pallas interpret mode (CPU testing);
-    defaults to True off-TPU.
-
-    ``traced_params`` (round 5, see sim.make_step): the returned step is
-    then ``step(state, t_end, params)`` with the named physics scalars
+    ``traced_params`` (see sim.make_step): the returned step is then
+    ``step(state, t_end, params)`` with the named physics scalars
     REPLICATED over the mesh — sharded physics-scalar gradients compose
-    with GSPMD (the dryrun's gradient tier pins this). Requires
-    ``rmt_method='xla'`` (the shard_map Pallas wrapper closes over the
-    scalars).
+    with GSPMD (the dryrun's gradient tier pins this).
     """
     import dataclasses
 
     import jax.numpy as jnp
 
-    from pyrmt_tpu.sim import make_step, rmt_block_fusible
+    from pyrmt_tpu.sim import make_step
 
     dtype = dtype or jnp.float32
     S = len(phi_inits)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    supported = (
-        rmt_block_fusible(cfg, S)
-        and rmt_block_sharded_supported(
-            mesh, cfg.grid.Ny, cfg.grid.Nx, cfg.num_layers, S)
-    )
-    if rmt_method is None:
-        rmt_method = "pallas" if (
-            jax.default_backend() == "tpu" and supported) else "xla"
-    if rmt_method == "pallas" and not supported:
-        # same failure mode as make_step's fusibility conditions: an
-        # explicit 'pallas' request never silently downgrades
-        raise ValueError(
-            "sharded Pallas RMT block unsupported for this config/mesh/"
-            "grid; see sim.rmt_block_fusible + rmt_block_sharded_supported")
-    rmt_impl = (
-        make_rmt_block_sharded(mesh, cfg.grid.Ny, cfg.grid.Nx,
-                               cfg.num_layers, interpret=interpret)
-        if rmt_method == "pallas" else None
-    )
-    mom_impl = (
-        make_momentum_rk4_sharded(mesh, cfg.grid.Ny, cfg.grid.Nx,
-                                  interpret=interpret)
-        if rmt_method == "pallas" and momentum_rk4_sharded_supported(
-            mesh, cfg.grid.Ny, cfg.grid.Nx, velocity_bc)
-        else None
-    )
-
-    # Other Pallas kernels are single-device programs the SPMD partitioner
-    # cannot split; outside the shard_mapped regions the sharded step uses
-    # the pure-XLA paths (which partition into halo exchanges / collectives
-    # automatically).
-    cfg = dataclasses.replace(
-        cfg, extrap_method="xla", momentum_method="xla", rmt_method="xla",
-        projection_method="xla", use_pallas_rhs=False,
-    )
-    if traced_params is not None and rmt_impl is not None:
-        raise ValueError(
-            "traced_params requires rmt_method='xla' (the shard_map "
-            "Pallas wrapper closes over the physics scalars)")
+    # the dense shift-add extrapolation partitions into halo exchanges (the
+    # sharded path tests/test_sharding.py pins)
+    cfg = dataclasses.replace(cfg, extrap_method="xla")
     base_step = make_step(cfg, velocity_bc, phi_inits, dtype=dtype,
-                          rmt_block_impl=rmt_impl,
-                          momentum_rk4_impl=mom_impl,
                           traced_params=traced_params)
     sh = state_sharding(mesh, rebasing=cfg.map_rebase_minj > 0.0 and S > 0,
                         S=S)

@@ -4,7 +4,7 @@ Capability parity with pyRMT/functions.py:165-192 (compute_timestep),
 :594-683 (momentum_step_rk4), :686-755 (momentum_step_rk4_2solids) and
 :818-865 (velocity_rhs_blended_optimized).
 
-TPU-first re-design: ONE generic n-solid momentum step. Solids are stacked on
+Re-design: ONE generic n-solid momentum step. Solids are stacked on
 a leading axis (S, Ny, Nx) and the per-solid pieces (stress, Heaviside,
 Kelvin-Voigt, CSF) are ``vmap``-ed; the n-fluid mixture (Jain 2019 Eq. 29)
 
@@ -14,7 +14,7 @@ Kelvin-Voigt, CSF) are ``vmap``-ed; the n-fluid mixture (Jain 2019 Eq. 29)
 reduces to the reference's single-solid blend (Sec. 4.3) at S=1 and to its
 hand-written two-solid variant at S=2. The entire RK4 evaluates as one fused
 XLA program — the reference's ~15 NumPy temporaries per stage
-(docs/PERFORMANCE.md:28-31) fuse away.
+(upstream docs/PERFORMANCE.md:28-31) fuse away.
 """
 from __future__ import annotations
 
@@ -298,8 +298,7 @@ def momentum_step_rk4_multi(
     gamma=0.0, stress_w_cut=0.0, stress_clamp=0.0, k_rep=0.0, w_c=None,
     g_x=0.0, g_y=0.0, g_rho_ref=None, ext_override=None,
     st_curvature="fd", st_kappa_interface=False, st_hf_smooth=0,
-    use_pallas_rhs=False, use_pallas_rk4=False, pallas_rk4_fn=None,
-    pallas_rk4_kwargs=None, periodic=False, st_enabled=None,
+    periodic=False, st_enabled=None,
 ):
     """Generic n-solid RK4 momentum step.
 
@@ -351,9 +350,7 @@ def momentum_step_rk4_multi(
     u_new, v_new = momentum_core(
         u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf, rho_local,
         f_ext_x, f_ext_y, mkv, velocity_bc, eta_s=eta_s, dx=dx, dy=dy,
-        dt=dt, mu_f=mu_f, use_pallas_rhs=use_pallas_rhs,
-        use_pallas_rk4=use_pallas_rk4, pallas_rk4_fn=pallas_rk4_fn,
-        pallas_rk4_kwargs=pallas_rk4_kwargs, periodic=periodic,
+        dt=dt, mu_f=mu_f, periodic=periodic,
     )
     return u_new, v_new, sxx_s, sxy_s, syy_s, J_s
 
@@ -361,46 +358,14 @@ def momentum_step_rk4_multi(
 def momentum_core(
     u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf, rho_local,
     f_ext_x, f_ext_y, mkv, velocity_bc, *, eta_s, dx, dy, dt, mu_f,
-    use_pallas_rhs=False, use_pallas_rk4=False, pallas_rk4_fn=None,
-    ext_is_zero=False, pallas_rk4_kwargs=None, periodic=False,
+    periodic=False,
 ):
     """RK4 velocity update from pre-blended fields.
 
     ``sig_s**_el`` are sum_i (1-H_i) sigma_i, ``mkv`` the Kelvin-Voigt blend
-    mask sum_i mask_i (1-H_i) (zeros when eta_s == 0). Used by both
-    ``momentum_step_rk4_multi`` and the fused RMT-block path in sim.make_step.
-    ``ext_is_zero`` is a STATIC promise that (f_ext_x, f_ext_y) are
-    identically zero — the fused kernel then elides those fields.
+    mask sum_i mask_i (1-H_i) (zeros when eta_s == 0).
     """
     use_kv = eta_s > 0.0
-
-    if use_pallas_rk4:
-        # fused full-RK4 Pallas kernel: all four stages + per-stage BCs in
-        # one VMEM-resident pass (requires a BC with a kernel_spec);
-        # pallas_rk4_fn substitutes a caller-provided twin (the shard_map
-        # per-shard wrapper from parallel/sharding.py)
-        from pyrmt_tpu.kernels.momentum_rk4 import momentum_rk4_pallas
-
-        if velocity_bc.kernel_spec[0] == "periodic":
-            # Make the inputs overlap-consistent BEFORE the kernel: the
-            # in-kernel periodic BC applies the column copy directly but
-            # relies on row Ny-1 == row 0 holding on entry for the row
-            # copy to be the identity (kernels/momentum_rk4._apply_bc).
-            # The XLA path applies the same BC to the stage-1 inputs, so
-            # this pre-application leaves its result unchanged.
-            u, v = velocity_bc(u, v)
-        if pallas_rk4_fn is not None:
-            return pallas_rk4_fn(
-                u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf, rho_local,
-                f_ext_x, f_ext_y, mkv, dt, dx, dy, mu_f, eta_s,
-                velocity_bc.kernel_spec,
-            )
-        return momentum_rk4_pallas(
-            u, v, p, sig_sxx_el, sig_sxy_el, sig_syy_el, Hf, rho_local,
-            f_ext_x, f_ext_y, mkv, dt, dx, dy, mu_f, eta_s,
-            velocity_bc.kernel_spec, has_ext=not ext_is_zero,
-            **(pallas_rk4_kwargs or {}),
-        )
 
     if periodic:
         from pyrmt_tpu.ops.fd import (
@@ -425,13 +390,6 @@ def momentum_core(
             sxx = sxx + mkv * (eta_s * du_dx)
             syy = syy + mkv * (eta_s * dv_dy)
             sxy = sxy + mkv * (eta_s * 0.5 * (du_dy + dv_dx))
-        if use_pallas_rhs and not periodic:
-            from pyrmt_tpu.kernels.momentum_rhs import velocity_rhs_blended_pallas
-
-            return velocity_rhs_blended_pallas(
-                u_stage, v_stage, p, sxx, sxy, syy, dx, dy, mu_f, Hf,
-                rho_local, f_ext_x, f_ext_y,
-            )
         return velocity_rhs_blended(
             u_stage, v_stage, p, sxx, sxy, syy, dx, dy, mu_f, Hf, rho_local,
             f_ext_x, f_ext_y, periodic=periodic,

@@ -172,30 +172,23 @@ class RMTConfig:
                                     # map under sustained large deformation
                                     # (benchmarks/README.md capillary row)
     map_rebase_rebuild: str = "cond"  # HOW the rebasing rebuild picks its
-                                    # source (round 5, TPU production knob):
-                                    # 'cond' (default) = the in-graph
+                                    # source: 'cond' (default) = the in-graph
                                     # per-solid lax.cond on phis0 != seed —
-                                    # correct in every phase, but on the
-                                    # TPU toolchain the cond's bilinear-
-                                    # gather branch is paid per step even
-                                    # untriggered inside lax.scan (measured
-                                    # ~150 ms/step at N=1024 vs 0.84 ms;
-                                    # docs/PERFORMANCE.md round-5 rebasing
-                                    # note) — fine at the validated N<=256
-                                    # scales; 'analytic' = always the
-                                    # analytic phi_init rebuild (EXACT
-                                    # until the first rebase event fires —
-                                    # triggers/rebasing still run and
-                                    # update phis0; the driver must switch
-                                    # to 'sampled' once aux['rebased']
-                                    # fires, see make_rebase_chunk_runner);
-                                    # 'sampled' = always bilinear phis0
-                                    # sampling (the post-rebase executable;
-                                    # identical to 'cond' once every solid
-                                    # has rebased, and to within bilinear
-                                    # sampling error of the analytic
-                                    # rebuild before — do not use it
-                                    # pre-trigger when exactness matters)
+                                    # correct in every phase; 'analytic' =
+                                    # always the analytic phi_init rebuild
+                                    # (EXACT until the first rebase event
+                                    # fires — triggers/rebasing still run
+                                    # and update phis0; the driver must
+                                    # switch to 'sampled' once
+                                    # aux['rebased'] fires, see
+                                    # make_rebase_runner); 'sampled' =
+                                    # always bilinear phis0 sampling (the
+                                    # post-rebase executable; identical to
+                                    # 'cond' once every solid has rebased,
+                                    # and to within bilinear sampling error
+                                    # of the analytic rebuild before — do
+                                    # not use it pre-trigger when exactness
+                                    # matters)
     phi_area_fix: bool = False      # per-solid constant-shift level-set
                                     # mass fix after the rebuild(+reinit):
                                     # phi_i += c_i with c_i solved (2 Newton
@@ -227,10 +220,7 @@ class RMTConfig:
     sl_interp: str = "bilinear"     # final SL gather: 'bilinear' | 'bicubic'
                                     # (Catmull-Rom, the reference's inactive
                                     # variant pyRMT/functions.py:200; both
-                                    # have gather-free local paths AND fused
-                                    # RMT-block kernel support — bicubic
-                                    # fused round 4, pinned bitwise vs the
-                                    # XLA path in tests/test_pallas.py)
+                                    # have gather-free local paths)
     sl_band_guard: float = 3.0      # bicubic band guard, in cells: reference-
                                     # map cells with phi > -guard*dx fall back
                                     # to the bilinear sample so bicubic's 4x4
@@ -256,54 +246,22 @@ class RMTConfig:
                                     # the advected map folds (J < 0) —
                                     # measured, benchmarks/README.md. <= 0
                                     # disables (raw bicubic everywhere)
-    use_pallas_rhs: bool = False    # fused Pallas momentum RHS (even N only)
-    dct_method: str = "auto"        # 'fft' | 'matmul' | 'matmul_rec' (odd N,
-    # recursive fold — fewest MXU FLOPs on 2^k+1 grids) | 'auto' (matmul on TPU)
-    dct_precision: str = "auto"     # MXU matmul precision of the DCT solves
-                                    # ('auto' | 'highest' | 'high' |
-                                    # 'default'). 'default' (single-pass
-                                    # bf16) runs the DCT matmuls ~2.5x
-                                    # faster than HIGHEST; its per-solve
-                                    # error (3.8e-3 relative at N=4096) is
-                                    # absorbed by the incremental
-                                    # projection's step-to-step feedback —
-                                    # re-validated round 3 against EVERY
-                                    # recorded f32 TPU metric: soft-disc
-                                    # Sugiyama dev 0.0052 (identical),
-                                    # contact gap/minJ 0.349/0.687, TG
-                                    # drift -2.93%, Ghia Re=1000 2.244e-2
-                                    # vs gate 2.8e-2
-                                    # (outputs/logs/dct_default_*.log,
-                                    # docs/DESIGN.md #6). 'auto' = default
-                                    # on TPU, highest elsewhere; set
-                                    # 'highest' to recover the exact
-                                    # FFT-parity transform (always the case
-                                    # on CPU, where precision is a no-op)
-    extrap_method: str = "auto"     # 'xla' | 'sparse' | 'pallas' | 'auto'
-                                    # (auto: pallas on TPU, sparse elsewhere)
-    momentum_method: str = "auto"   # 'xla' | 'pallas' | 'auto' (pallas on TPU)
-    rmt_method: str = "auto"        # 'xla' | 'pallas' | 'auto': fuse the whole
-                                    # advect->extrap->stress block on TPU
-    rmt_panel_width: int | None = None  # override the RMT-block kernel's
-                                    # column-panel width (perf tuning; None =
-                                    # kernels/rmt_block._panel_width)
-    rmt_tile: int | None = None     # override the RMT-block kernel's row-tile
-                                    # height (perf tuning; larger tiles cut
-                                    # halo recompute but need a raised
-                                    # --xla_tpu_scoped_vmem_limit_kib at
-                                    # full panel width)
-    kernel_slab_halo: bool = True   # halo-row slab operands for both fused
-                                    # kernels (input DMA tile+2h rows
-                                    # instead of 3*tile). BITWISE identical
-                                    # to the full neighbour-block operands
-                                    # (pinned in tests/test_pallas.py);
-                                    # Mosaic-compile-validated on TPU at
-                                    # N=129..2048. Falls back per kernel
-                                    # when the row tiling is not
-                                    # halo-aligned
-    projection_method: str = "auto" # 'xla' | 'pallas' | 'auto': fuse the
-                                    # projection's pre/post-DCT stencil
-                                    # chains into Pallas passes on TPU
+    dct_method: str = "auto"        # Neumann DCT-I lowering: 'fft' (rFFT of
+                                    # the even extension) | 'matmul' (dense
+                                    # even/odd-folded transform matrices) |
+                                    # 'matmul_rec' (odd N, recursive fold —
+                                    # fewest matmul FLOPs on 2^k+1 grids) |
+                                    # 'auto' (= 'fft' on every platform)
+    dct_precision: str = "auto"     # matmul precision of the matmul DCT
+                                    # lowerings ('auto' | 'highest' | 'high'
+                                    # | 'default'). 'auto' = 'highest' on
+                                    # every platform: the exact FFT-parity
+                                    # transform. On a GPU 'default' is a
+                                    # TF32 matmul (~3 decimal digits) and
+                                    # is unvalidated; docs/DESIGN.md #6
+    extrap_method: str = "auto"     # 'xla' (dense shift-add sweeps) |
+                                    # 'sparse' (frontier gather with a dense
+                                    # fallback) | 'auto' (= 'sparse')
     variable_rho: bool = False      # static: solid/fluid densities differ
     cg_tol: float = 1e-6
     cg_maxiter: int = 200
@@ -318,17 +276,12 @@ class RMTConfig:
 
 
 def _resolve_dct_mats(method: str, Nx: int, Ny: int, dtype):
-    """Trace-time choice of the Neumann DCT lowering.
-
-    'matmul' runs the DCT-I as dense MXU matmuls (fastest on TPU: the
-    2(N-1)-length FFT lowering is far off the roofline); 'fft' keeps the
-    rFFT-of-even-extension path (fastest on CPU and the reference-parity
-    formulation); 'auto' picks matmul exactly when running on TPU.
-    """
-    if method == "auto":
-        import jax
-
-        method = "matmul" if jax.default_backend() == "tpu" else "fft"
+    """Trace-time choice of the Neumann DCT lowering: 'fft' (and 'auto')
+    keeps the rFFT-of-even-extension path (the reference-parity
+    formulation); 'matmul'/'matmul_rec' return the dense transform
+    matrices of ops/poisson.py."""
+    if method in ("auto", "fft"):
+        return None
     if method == "matmul":
         from pyrmt_tpu.ops.poisson import precompute_dct_matrices
 
@@ -337,20 +290,26 @@ def _resolve_dct_mats(method: str, Nx: int, Ny: int, dtype):
         from pyrmt_tpu.ops.poisson import precompute_dct_plan
 
         return precompute_dct_plan(Nx, Ny, dtype=dtype)
-    if method != "fft":
-        raise ValueError(f"unknown dct_method {method!r}")
-    return None
+    raise ValueError(f"unknown dct_method {method!r}")
 
 
 def _resolve_dct_precision(name: str) -> str | None:
-    """'auto' -> 'default' on TPU (re-validated against every recorded f32
-    metric, see RMTConfig.dct_precision), 'highest' elsewhere (the exact
-    FFT-parity transform; precision is a no-op on CPU anyway)."""
-    if name == "auto":
-        import jax
+    """'auto' -> 'highest': the exact FFT-parity transform (a no-op on the
+    CPU; on a GPU it keeps f32 matmuls out of TF32)."""
+    return "highest" if name == "auto" else name
 
-        return "default" if jax.default_backend() == "tpu" else "highest"
-    return name
+
+def _resolve_extrap(method: str):
+    """The narrow-band extrapolation of ``RMTConfig.extrap_method``
+    ('auto' -> 'sparse'); shared by make_step and make_rebase_runner."""
+    from pyrmt_tpu.ops.extrapolate import extrapolate_reference_map_sparse
+
+    fns = {"auto": extrapolate_reference_map_sparse,
+           "sparse": extrapolate_reference_map_sparse,
+           "xla": extrapolate_reference_map}
+    if method not in fns:
+        raise ValueError(f"unknown extrap_method {method!r}")
+    return fns[method]
 
 
 def required_extrapolation_layers(w_t, dx):
@@ -370,59 +329,6 @@ def check_narrow_band(w_t, dx, num_layers):
             "extrapolation layers but only %d requested." % (w_t, w_t / dx, need, num_layers)
         )
     return need
-
-
-def _rmt_advect_fusible(cfg: RMTConfig, S: int) -> bool:
-    """Base conditions shared by BOTH fused tiers: semi-Lagrangian
-    gather-free advection (bilinear or band-guarded bicubic final gather)
-    with a sub-cell (CFL < 1) backtrace. ``bc_type='periodic'`` is
-    deliberately NOT gated: the kernels bake the same edge-clamp
-    gather/stencil semantics the XLA solid ops use under periodic BCs, so
-    the two paths remain bitwise twins (pinned for a periodic solid config
-    in tests/test_pallas.py); neither supports a solid crossing the
-    periodic seam — that is rejected explicitly
-    (``check_periodic_seam_clearance`` in make_init_state, and the
-    ``solid_near_periodic_seam`` runtime predicate)."""
-    return (
-        S >= 1
-        and cfg.scheme == "semilagrangian"
-        and cfg.sl_local
-        and cfg.sl_interp in ("bilinear", "bicubic")
-        and cfg.CFL < 1.0
-    )
-
-
-def rmt_block_fusible(cfg: RMTConfig, S: int) -> bool:
-    """Config-level conditions under which the FULL fused RMT-block kernel
-    can replace the advect→extrapolate→rebuild→stress block (any impl,
-    incl. the sharded one): the base advection conditions
-    (``_rmt_advect_fusible``) and no level-set post-processing
-    (reinitialisation or the area-conserving shift): both rewrite phi AFTER
-    the rebuild the kernel performs internally, which would desync the
-    kernel's own phi-derived blends (Hf, rho_local, banded stress). Map
-    rebasing also opts out: its rebuild samples SimState.phis0 instead of
-    the analytic closures the kernel bakes in. Those configs use the SPLIT
-    fused tier instead (``rmt_block_split_eligible``)."""
-    return (
-        _rmt_advect_fusible(cfg, S)
-        and cfg.reinit_method == "none"
-        and not cfg.phi_area_fix
-        and cfg.map_rebase_minj == 0.0
-    )
-
-
-def rmt_block_split_eligible(cfg: RMTConfig, S: int) -> bool:
-    """Configs that post-process phi (reinit / area fix / map rebasing) but
-    still satisfy the base advection conditions run the SPLIT fused tier:
-    kernel A (kernels/rmt_block.advext_block_fused) fuses the expensive
-    advect→extrapolate stages with the pre-advection phi as an input, while
-    the rebuild/reinit/area-fix chain and the stress/blends run as the
-    exact XLA ops between the kernel and the fused RK4 momentum. Numerical
-    parity with the pure-XLA path is pinned in tests/test_pallas.py."""
-    return (
-        _rmt_advect_fusible(cfg, S)
-        and not rmt_block_fusible(cfg, S)
-    )
 
 
 def periodic_seam_clearance_cells(cfg: RMTConfig) -> int:
@@ -492,8 +398,6 @@ def make_step(
     velocity_bc: Callable,
     phi_inits: Sequence[Callable] = (),
     dtype=jnp.float32,
-    rmt_block_impl: Callable | None = None,
-    momentum_rk4_impl: Callable | None = None,
     traced_params: tuple[str, ...] | None = None,
 ):
     """Build the jitted FSI step for a fixed configuration.
@@ -502,25 +406,17 @@ def make_step(
     phi_i = phi_inits[i](X1_i, X2_i); an empty sequence gives the pure-fluid
     solver. Returns ``step(state, t_end) -> (state, aux)``.
 
-    ``rmt_block_impl`` / ``momentum_rk4_impl`` (optional) substitute the
-    fused RMT-block / full-RK4-momentum kernel calls with caller-provided
-    implementations of the same signatures — used by
-    parallel.make_sharded_step to run the Pallas kernels per shard under
-    shard_map. The caller is responsible for checking supportedness.
-
-    ``traced_params`` (round 5) names physics scalars the step takes as a
-    RUNTIME dict instead of baking cfg's floats: the returned function is
-    then ``step(state, t_end, params) -> (state, aux)`` with
+    ``traced_params`` names physics scalars the step takes as a RUNTIME
+    dict instead of baking cfg's floats: the returned function is then
+    ``step(state, t_end, params) -> (state, aux)`` with
     ``params = {'mu_s': ...}``, differentiable w.r.t. every named scalar
-    (the fused RMT-block kernel accepts them as SMEM scalar operands, so
-    the FUSED forward is retained — see diff.make_diff_step). Allowed
-    names: ``mu_s, kappa, gamma, rho_s, rho_f`` (``mu_f``/``eta_s``/
-    ``k_rep`` stay compile-time: they gate kernel structure). STRUCTURAL
-    choices (is surface tension on, fused-path eligibility, dt caps'
+    (see diff.make_diff_step). Allowed names: ``mu_s, kappa, gamma, rho_s,
+    rho_f`` (``mu_f``/``eta_s``/``k_rep`` stay compile-time: they gate the
+    step's structure). STRUCTURAL choices (is surface tension on, dt caps'
     branches) still follow ``cfg``'s values — a traced value must not
     cross its cfg twin's enable thresholds (e.g. keep a traced gamma > 0
-    iff cfg.gamma > 0). With ``traced_params=None`` the build is
-    byte-for-byte the round-4 step.
+    iff cfg.gamma > 0). With ``traced_params=None`` cfg's floats are
+    baked into the trace.
     """
     if traced_params is not None:
         bad = set(traced_params) - set(_TRACEABLE_PARAMS)
@@ -528,11 +424,6 @@ def make_step(
             raise ValueError(
                 f"traced_params {sorted(bad)} not traceable; allowed: "
                 f"{_TRACEABLE_PARAMS}")
-        # NOTE: the shard_map rmt_block_impl (parallel.make_rmt_block_sharded)
-        # closes over the scalars and cannot take traced values — sharded
-        # gradients go through the GSPMD XLA step instead (tests/
-        # test_sharding.py). The plain interpret-mode impl the tests use
-        # (functools.partial(rmt_block_fused, interpret=True)) is fine.
     g = cfg.grid
     dx, dy = g.dx, g.dy
     S = len(phi_inits)
@@ -621,88 +512,7 @@ def make_step(
         stress_w_cut = cfg.w_t if cfg.stress_band else 0.0
         stress_clamp = cfg.detg_clamp if cfg.stress_band else 0.0
 
-    from pyrmt_tpu.kernels.momentum_rk4 import momentum_rk4_supported
-
-    momentum_method = cfg.momentum_method
-    if momentum_method == "auto":
-        momentum_method = "pallas" if jax.default_backend() == "tpu" else "xla"
-    # S == 0 keeps the XLA momentum: with no solid the blends are constants
-    # (sigma_el = 0, Hf = 1, rho = rho_f) and XLA constant-folds most of the
-    # RHS — measured 2.2x faster than the kernel's full-work pass at N=1024.
-    if momentum_rk4_impl is not None:
-        use_pallas_rk4 = (
-            S > 0 and getattr(velocity_bc, "kernel_spec", None) is not None
-        )
-    else:
-        use_pallas_rk4 = (
-            momentum_method == "pallas"
-            and S > 0
-            and momentum_rk4_supported(velocity_bc, g.Ny)
-        )
-    if momentum_method not in ("xla", "pallas"):
-        raise ValueError(f"unknown momentum_method {cfg.momentum_method!r}")
-
-    from pyrmt_tpu.kernels.rmt_block import rmt_block_supported
-
-    rmt_method = cfg.rmt_method
-    if rmt_method == "auto":
-        rmt_method = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if rmt_method not in ("xla", "pallas"):
-        raise ValueError(f"unknown rmt_method {cfg.rmt_method!r}")
-    rmt_fusible = rmt_block_fusible(cfg, S)
-    if rmt_block_impl is not None:
-        use_rmt_fused = rmt_fusible
-        use_rmt_split = False
-    else:
-        kernel_ok = rmt_block_supported(g.Ny, cfg.num_layers, S)
-        use_rmt_fused = rmt_method == "pallas" and rmt_fusible and kernel_ok
-        # split tier: phi post-processing configs (reinit / area fix / map
-        # rebasing) fuse the advect→extrapolate stages (kernel A) and run
-        # the phi chain + stress/blends as the exact XLA ops in between
-        use_rmt_split = (
-            rmt_method == "pallas"
-            and rmt_block_split_eligible(cfg, S)
-            and kernel_ok
-        )
-
-    from pyrmt_tpu.kernels.projection_stencils import (
-        projection_stencils_supported,
-    )
-
-    projection_method = cfg.projection_method
-    if projection_method == "auto":
-        # measured a wash vs XLA's own fusion of these chains at N=1024
-        # (733.5 vs 731.9 steps/s) — keep the simpler XLA lowering by
-        # default; the fused kernels stay available as 'pallas'
-        projection_method = "xla"
-    if projection_method not in ("xla", "pallas"):
-        raise ValueError(f"unknown projection_method {cfg.projection_method!r}")
-    use_proj_kernels = (
-        projection_method == "pallas"
-        and cfg.bc_type == "neumann"
-        and not cfg.variable_rho
-        and projection_stencils_supported(velocity_bc, g.Ny)
-    )
-    proj_spec = velocity_bc.kernel_spec if use_proj_kernels else None
-    proj_interpret = jax.default_backend() != "tpu"
-
-    extrap_method = cfg.extrap_method
-    if extrap_method == "auto":
-        extrap_method = "pallas" if jax.default_backend() == "tpu" else "sparse"
-    if extrap_method == "pallas":
-        from pyrmt_tpu.kernels.extrapolate_fused import (
-            extrapolate_reference_map_fused,
-        )
-
-        extrap_fn = extrapolate_reference_map_fused
-    elif extrap_method == "xla":
-        extrap_fn = extrapolate_reference_map
-    elif extrap_method == "sparse":
-        from pyrmt_tpu.ops.extrapolate import extrapolate_reference_map_sparse
-
-        extrap_fn = extrapolate_reference_map_sparse
-    else:
-        raise ValueError(f"unknown extrap_method {cfg.extrap_method!r}")
+    extrap_fn = _resolve_extrap(cfg.extrap_method)
 
     rebasing = cfg.map_rebase_minj > 0.0 and S > 0
     if rebasing:
@@ -729,11 +539,8 @@ def make_step(
             # (exact — bitwise-identical to rebasing-off) and switches to
             # bilinear phis0 sampling per solid once a rebase has rewritten
             # it. Modes 'analytic'/'sampled' pin one source uncondition-
-            # ally: the TPU production pattern (the in-scan cond's gather
-            # branch is paid per step on the TPU toolchain even untriggered
-            # — see RMTConfig.map_rebase_rebuild and the round-5 rebasing
-            # note in docs/PERFORMANCE.md); the runner switches executables
-            # at chunk granularity when aux['rebased'] fires.
+            # ally (the two executables of make_rebase_runner, which
+            # switches between them at chunk granularity).
             outs = []
             for i in range(S):
                 if rebuild_mode == "analytic":
@@ -840,194 +647,6 @@ def make_step(
         active = dt > 0.0
         dt = jnp.where(active, dt, jnp.asarray(1.0, dtype))
 
-        if use_rmt_fused or use_rmt_split:
-            # (2)-(4) + stress/blends in ONE Pallas pass (kernels/rmt_block)
-            # — or, in SPLIT mode, kernel A (fused advect→extrapolate) with
-            # the phi rebuild/reinit/area-fix chain and the stress/blends as
-            # the exact XLA ops around it (rmt_block_split_eligible).
-            # On no-op (dt-frozen) steps the STATE stays exactly frozen below;
-            # only the aux diagnostics reflect the discarded trial step
-            # (the XLA path recomputes them from the frozen maps instead).
-            import functools
-
-            from pyrmt_tpu.kernels.rmt_block import (
-                advext_block_fused,
-                rmt_block_fused,
-            )
-            from pyrmt_tpu.physics import external_forces, momentum_core
-
-            tuning = {}
-            if cfg.rmt_panel_width is not None:
-                tuning["panel_width"] = cfg.rmt_panel_width
-            if cfg.rmt_tile is not None:
-                tuning["tile"] = cfg.rmt_tile
-            if cfg.kernel_slab_halo:
-                tuning["slab_halo"] = True
-            sl_guard = (cfg.sl_band_guard * max(dx, dy)
-                        if (cfg.sl_interp == "bicubic"
-                            and cfg.sl_band_guard > 0.0) else None)
-            if use_rmt_split:
-                from pyrmt_tpu.ops.stress import solid_cauchy_stress
-
-                # (2) pre-advection phi chain (exact XLA ops)
-                phis_pre = rebuild_phis(X1s, X2s, state.phis0)
-                if cfg.reinit_method != "none":
-                    phis_pre = jnp.stack([
-                        reinitialize_level_set(
-                            phis_pre[i], dx, dy, method=cfg.reinit_method,
-                            num_iters=cfg.reinit_iters,
-                        )
-                        for i in range(S)
-                    ])
-                if cfg.phi_area_fix:
-                    phis_pre = fix_areas(phis_pre)
-                # (3) fused advect + mask + extrapolate (kernel A)
-                X1e, X2e = advext_block_fused(
-                    u, v, X1s, X2s, phis_pre, dt, dx=dx, dy=dy,
-                    num_layers=cfg.num_layers, sl_interp=cfg.sl_interp,
-                    sl_guard=sl_guard, **tuning,
-                )
-                # (4) rebuild from the advected map (+ area fix), then the
-                # stress/blend twins of the full kernel's outputs
-                phis = rebuild_phis(X1e, X2e, state.phis0)
-                if cfg.phi_area_fix:
-                    phis = fix_areas(phis)
-                stress_fn = lambda x1, x2, ph: solid_cauchy_stress(
-                    x1, x2, dx, dy, pp.mu_s, pp.kappa, ph,
-                    w_cut=stress_w_cut, detg_clamp=stress_clamp)
-                sxx_s, sxy_s, syy_s, J_s = jax.vmap(stress_fn)(
-                    X1e, X2e, phis)
-                H_bl = smoothed_heaviside(phis, cfg.w_t)
-                one_mH = 1.0 - H_bl
-                Hf = jnp.sum(H_bl, axis=0) - (S - 1.0)
-                rho_local = (Hf * pp.rho_f
-                             + jnp.sum(one_mH, axis=0) * pp.rho_s)
-                sb_xx = jnp.sum(one_mH * sxx_s, axis=0)
-                sb_xy = jnp.sum(one_mH * sxy_s, axis=0)
-                sb_yy = jnp.sum(one_mH * syy_s, axis=0)
-            else:
-                if rmt_block_impl is not None:
-                    rmt_fn = rmt_block_impl
-                else:
-                    rmt_fn = (functools.partial(rmt_block_fused, **tuning)
-                              if tuning else rmt_block_fused)
-                (X1e, X2e, phis, sxx_s, sxy_s, syy_s, J_s, Hf, rho_local,
-                 sb_xx, sb_xy, sb_yy) = rmt_fn(
-                    u, v, X1s, X2s, dt, phi_inits=tuple(phi_inits),
-                    dx=dx, dy=dy,
-                    num_layers=cfg.num_layers, w_t=cfg.w_t, mu_s=pp.mu_s,
-                    kappa=pp.kappa, rho_s=pp.rho_s, rho_f=pp.rho_f,
-                    stress_w_cut=stress_w_cut, stress_clamp=stress_clamp,
-                    sl_interp=cfg.sl_interp, sl_guard=sl_guard,
-                )
-            X1s = jnp.where(active, X1e, state.X1)
-            X2s = jnp.where(active, X2e, state.X2)
-
-            st_faces = None
-            if cfg.gamma > 1e-12 or (cfg.k_rep > 0.0 and S >= 2):
-                from pyrmt_tpu.physics import balanced_csf_forces
-
-                H_s = smoothed_heaviside(phis, cfg.w_t)
-                if st_balanced:
-                    fxc, fyc, Fxf, Fyf = balanced_csf_forces(
-                        phis, H_s, dx, dy, pp.gamma,
-                        kappa_interface=cfg.st_kappa_interface,
-                        curvature=cfg.st_curvature, w_t=cfg.w_t,
-                        hf_smooth=cfg.st_hf_smooth)
-                    cfx, cfy = external_forces(
-                        phis, H_s, dx, dy, gamma=0.0, k_rep=cfg.k_rep,
-                        w_c=cfg.w_c, w_t=cfg.w_t)
-                    f_ext_x = fxc + cfx
-                    f_ext_y = fyc + cfy
-                    st_faces = (Fxf, Fyf, fxc, fyc)
-                else:
-                    f_ext_x, f_ext_y = external_forces(
-                        phis, H_s, dx, dy, gamma=pp.gamma, k_rep=cfg.k_rep,
-                        w_c=cfg.w_c, w_t=cfg.w_t,
-                        curvature=cfg.st_curvature,
-                        kappa_interface=cfg.st_kappa_interface,
-                        hf_smooth=cfg.st_hf_smooth,
-                        st_enabled=cfg.gamma > 1e-12)
-            else:
-                f_ext_x = jnp.zeros(g.shape, dtype)
-                f_ext_y = f_ext_x
-            if has_gravity:
-                # pp.rho_f (== cfg.rho_f unless traced) so d/d(rho_f)
-                # includes the buoyancy reference when g_rho_ref is None
-                drho = rho_local - (
-                    pp.rho_f if cfg.g_rho_ref is None else g_rho_ref)
-                f_ext_x = f_ext_x + drho * cfg.g_x
-                f_ext_y = f_ext_y + drho * cfg.g_y
-            if cfg.eta_s > 0.0:
-                if S == 1:
-                    # Hf == H_0 for a single solid: reuse the RMT block's
-                    # blended Heaviside instead of re-evaluating the tanh
-                    # over the full grid (~25 us/step at N=1024).
-                    mkv = (phis[0] <= 0.0).astype(dtype) * (1.0 - Hf)
-                else:
-                    H_kv = smoothed_heaviside(phis, cfg.w_t)
-                    mkv = jnp.sum(
-                        (phis <= 0.0).astype(dtype) * (1.0 - H_kv), axis=0)
-            else:
-                mkv = jnp.zeros(g.shape, dtype)
-
-            u_star, v_star = momentum_core(
-                u, v, p, sb_xx, sb_xy, sb_yy, Hf, rho_local,
-                f_ext_x, f_ext_y, mkv, velocity_bc, eta_s=cfg.eta_s,
-                dx=dx, dy=dy, dt=dt, mu_f=cfg.mu_f,
-                use_pallas_rhs=cfg.use_pallas_rhs,
-                use_pallas_rk4=use_pallas_rk4,
-                pallas_rk4_fn=momentum_rk4_impl,
-                ext_is_zero=not (cfg.gamma > 1e-12
-                                 or (cfg.k_rep > 0.0 and S >= 2)
-                                 or has_gravity),
-                pallas_rk4_kwargs=(
-                    {"slab_halo": True} if cfg.kernel_slab_halo else None),
-                periodic=cfg.bc_type == "periodic",
-            )
-
-            proj_out = pressure_projection(
-                u_star, v_star, dx, dy, dt, rho_local, velocity_bc,
-                p_prev=p, eigenvalues=eig, bc_type=cfg.bc_type,
-                variable_rho=cfg.variable_rho, cg_tol=cfg.cg_tol,
-                cg_maxiter=cfg.cg_maxiter, dct_mats=dct_mats,
-                stencil_bc_spec=proj_spec, stencil_interpret=proj_interpret,
-                dct_precision=dct_prec, cg_info=cfg.variable_rho,
-                st_faces=st_faces,
-            )
-            u_new, v_new, p_new = proj_out[:3]
-
-            # (5b) map rebasing (split tier only — the full fused kernel
-            # excludes rebasing configs): reset folding maps against a
-            # redistanced base level set, exactly as in the XLA branch
-            phis0_new = state.phis0
-            if rebasing:
-                X1s, X2s, phis0_new, rebase_flags = maybe_rebase(
-                    X1s, X2s, phis, J_s, state.phis0, active)
-
-            frz = lambda new, old: jnp.where(active, new, old)
-            new_state = SimState(
-                u=frz(u_new, state.u), v=frz(v_new, state.v),
-                p=frz(p_new, state.p), X1=X1s, X2=X2s,
-                t=state.t + jnp.where(active, dt, 0.0).astype(dtype),
-                step=state.step + jnp.where(active, 1, 0).astype(jnp.int32),
-                phis0=phis0_new,
-            )
-            aux = {
-                "dt": jnp.where(active, dt, 0.0).astype(dtype),
-                "phis": phis,
-                "J": J_s,
-                "sxx": sxx_s,
-                "sxy": sxy_s,
-                "syy": syy_s,
-                "rho_local": rho_local,
-            }
-            if cfg.variable_rho:
-                aux["cg_iters"], aux["cg_relres"] = proj_out[3]
-            if rebasing:
-                aux["rebased"] = rebase_flags
-            return new_state, aux
-
         if S > 0:
             # (2) compatibility rebuild (+ optional reinitialisation)
             phis = rebuild_phis(X1s, X2s, state.phis0)
@@ -1060,7 +679,7 @@ def make_step(
                 if cfg.sl_local and cfg.CFL < 1.0:
                     # gather-free fast path: CFL bounds the backtrace to <1
                     # cell, so the sampling (bilinear or bicubic final
-                    # gather) is shifts+selects (VPU)
+                    # gather) is shifts+selects
                     qs_new = advect_semilagrangian_rk4_local(
                         qs, u, v, dt, dx, dy, interp=cfg.sl_interp,
                         cubic_mask=cubic_mask,
@@ -1142,10 +761,6 @@ def make_step(
             st_curvature=cfg.st_curvature,
             st_kappa_interface=cfg.st_kappa_interface,
             st_hf_smooth=cfg.st_hf_smooth,
-            use_pallas_rhs=cfg.use_pallas_rhs, use_pallas_rk4=use_pallas_rk4,
-            pallas_rk4_fn=momentum_rk4_impl,
-            pallas_rk4_kwargs=(
-                {"slab_halo": True} if cfg.kernel_slab_halo else None),
             periodic=cfg.bc_type == "periodic",
         )
 
@@ -1171,7 +786,6 @@ def make_step(
             p_prev=p, eigenvalues=eig, bc_type=cfg.bc_type,
             variable_rho=cfg.variable_rho, cg_tol=cfg.cg_tol,
             cg_maxiter=cfg.cg_maxiter, dct_mats=dct_mats,
-            stencil_bc_spec=proj_spec, stencil_interpret=proj_interpret,
             dct_precision=dct_prec, cg_info=cfg.variable_rho,
             st_faces=st_faces,
         )
@@ -1302,13 +916,12 @@ def make_run_chunk(step_fn, n_steps: int, donate: bool = False):
     """Compile ``n_steps`` adaptive-dt steps into ONE XLA program via
     lax.scan — zero host round-trips (the benchmarking / production path).
     Returns ``(state, t_final)``: the per-step time history is NOT stacked
-    (the dynamic-update-slice per step cost ~1.5% of the N=1024 step in
-    the round-4 profiler trace, and no caller consumed it).
+    (no caller consumes it, and it would add a dynamic-update-slice to
+    every step).
 
     ``donate=True`` donates the INPUT state's buffers to the output
     (jit donate_argnums), dropping one full SimState from the peak live
-    footprint — what fits the N=8192 single-chip bench inside the 15.75 GB
-    HBM (round 5; docs/PERFORMANCE.md). The caller must then CHAIN states
+    footprint. The caller must then CHAIN states
     (``state = chunk(state, t)[0]``) — the passed-in state's arrays are
     deleted."""
 
@@ -1326,32 +939,29 @@ def make_run_chunk(step_fn, n_steps: int, donate: bool = False):
 
 def make_rebase_runner(cfg, velocity_bc, phi_inits, n_steps: int,
                        dtype=jnp.float32, donate: bool = False):
-    """Chunked runner for map-rebasing configs — the TPU PRODUCTION path.
+    """Chunked runner for map-rebasing configs with no per-step cond in
+    the rebuild.
 
     Builds TWO executables of the same physics differing only in
-    ``map_rebase_rebuild``: the 'analytic' PRE-rebase step (gather-free —
-    full split-fused-tier speed; NO in-graph triggering) and the 'sampled'
-    POST-rebase step (bilinear phis0 sampling every rebuild, in-graph
-    maybe_rebase for subsequent triggers — consistent there because the
-    sampled rebuild follows phis0). In the pre phase the RUNNER owns the
-    trigger: after each scanned chunk it recomputes per-solid min J (one
-    small jitted reduction), and on a firing threshold performs the rebase
-    itself (FSM redistance + identity re-extrapolation, the exact
-    maybe_rebase recipe replayed once at the chunk boundary) and switches
-    executables permanently.
+    ``map_rebase_rebuild``: the 'analytic' PRE-rebase step (gather-free; NO
+    in-graph triggering) and the 'sampled' POST-rebase step (bilinear
+    phis0 sampling every rebuild, in-graph maybe_rebase for subsequent
+    triggers — consistent there because the sampled rebuild follows
+    phis0). In the pre phase the RUNNER owns the trigger: after each
+    scanned chunk it recomputes per-solid min J (one small jitted
+    reduction), and on a firing threshold performs the rebase itself (FSM
+    redistance + identity re-extrapolation, the exact maybe_rebase recipe
+    replayed once at the chunk boundary) and switches executables
+    permanently.
 
-    Why not the in-graph 'cond' rebuild everywhere: on the TPU toolchain
-    the cond's bilinear-gather branch is paid per scan step even when the
-    predicate is false (measured ~150 ms/step at N=1024 vs 0.84 ms for
-    the same physics without the gather; docs/PERFORMANCE.md round-5
-    rebasing note), so the exact in-graph dispatch that is free on CPU is
-    ~180x on TPU. The chunk-level protocol trades that for ONE semantic
-    concession: in the pre phase a trigger is detected at the END of the
-    chunk it occurs in (latency <= n_steps steps), and the first trigger
-    switches EVERY solid's rebuild to sampled. Keep rebasing chunks modest
-    (100-500 steps) so the lag is bounded; use
-    ``map_rebase_rebuild='cond'`` (default make_step) when step-exact
-    triggering matters more than TPU throughput (CPU, small N).
+    The in-graph 'cond' rebuild (default make_step) keeps a per-solid
+    ``lax.cond`` with a bilinear-gather branch inside every scanned step;
+    this runner removes it at the price of ONE semantic concession: in the
+    pre phase a trigger is detected at the END of the chunk it occurs in
+    (latency <= n_steps steps), and the first trigger switches EVERY
+    solid's rebuild to sampled. Keep rebasing chunks modest (100-500
+    steps) so the lag is bounded; use ``map_rebase_rebuild='cond'`` when
+    step-exact triggering matters.
 
     Returns ``run(state, t_end) -> (state, t)`` — same contract as
     :func:`make_run_chunk`.
@@ -1401,14 +1011,7 @@ def make_rebase_runner(cfg, velocity_bc, phi_inits, n_steps: int,
     else:
         s_w_cut = cfg.w_t if cfg.stress_band else 0.0
         s_clamp = cfg.detg_clamp if cfg.stress_band else 0.0
-    if jax.default_backend() == "tpu":
-        from pyrmt_tpu.kernels.extrapolate_fused import (
-            extrapolate_reference_map_fused as _extrap,
-        )
-    else:
-        from pyrmt_tpu.ops.extrapolate import (
-            extrapolate_reference_map_sparse as _extrap,
-        )
+    _extrap = _resolve_extrap(cfg.extrap_method)
 
     @jax.jit
     def _min_J(state):
@@ -1474,27 +1077,21 @@ def make_rollout(step_fn, n_steps: int, remat: bool = True):
     values are bitwise-identical to ``make_run_chunk`` (remat only changes
     what is saved for the backward pass; pinned in tests/test_diff.py).
 
-    Differentiation requires the XLA compute paths — the fused Pallas
-    kernels define no VJP — so build the step with ``rmt_method='xla'``,
-    ``momentum_method='xla'`` (the defaults off-TPU), ``extrap_method='xla'``
-    (or keep the fused forward and substitute the XLA twin's VJP with
-    :func:`pyrmt_tpu.diff.make_diff_step`). ``variable_rho=True`` is fully
-    differentiable: the CG projection's ``lax.while_loop`` (no reverse-mode
-    rule) is wrapped in an implicit-adjoint ``jax.custom_vjp`` that solves
-    the self-adjoint system once on the backward pass
+    ``variable_rho=True`` is fully differentiable: the CG projection's
+    ``lax.while_loop`` (no reverse-mode rule) is wrapped in an
+    implicit-adjoint ``jax.custom_vjp`` that solves the self-adjoint
+    system once on the backward pass
     (ops/poisson.solve_variable_poisson_cg_counted, tests/test_diff.py).
     To differentiate w.r.t. a *physics* scalar (mu_s, kappa, gamma,
-    rho_s, rho_f), build the step with ``make_step(traced_params=(...))``
-    (round 5): the scalars become a runtime dict argument, ONE compiled
-    program serves every parameter value (no per-value retrace), the
-    adaptive-timestep dependence differentiates too, and the traced
-    scalars reach the fused Pallas kernels as SMEM operands
-    (demonstrated end-to-end in examples/differentiable_fsi.py:
-    inverse-stiffness recovery at fused forward speed via
-    diff.make_diff_step(param_names=...)). The older pattern — rebuilding
-    inside the differentiated function with
-    ``dataclasses.replace(cfg, mu_s=theta)`` — still works on the XLA
-    paths with ``fixed_dt`` (tests/test_diff.py) but retraces per value.
+    rho_s, rho_f), build the step with ``make_step(traced_params=(...))``:
+    the scalars become a runtime dict argument, ONE compiled program
+    serves every parameter value (no per-value retrace), and the
+    adaptive-timestep dependence differentiates too (demonstrated
+    end-to-end in examples/differentiable_fsi.py: inverse-stiffness
+    recovery via diff.make_diff_step(param_names=...)). The older pattern
+    — rebuilding inside the differentiated function with
+    ``dataclasses.replace(cfg, mu_s=theta)`` — still works with
+    ``fixed_dt`` (tests/test_diff.py) but retraces per value.
 
     The upstream NumPy/Numba stack has no gradient story at all; this is
     what the JAX-native architecture buys beyond speed.

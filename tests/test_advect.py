@@ -249,24 +249,18 @@ def test_semilagrangian_bicubic_beats_bilinear_on_smooth_field():
 
 def test_sim_step_sl_interp_bicubic_runs_and_differs():
     """A full FSI step with cfg.sl_interp='bicubic' compiles, stays finite,
-    and actually changes the advected maps relative to bilinear. Since
-    round 4 bicubic is ALSO fusible into the RMT-block kernel (kernel
-    parity pinned in tests/test_pallas.py); on the CPU backend both configs
-    take the XLA path here."""
+    and actually changes the advected maps relative to bilinear."""
     import jax.numpy as jnp
 
     from pyrmt_tpu.bcs import make_lid_bc
     from pyrmt_tpu.grid import Grid
-    from pyrmt_tpu.sim import (
-        RMTConfig, make_init_state, make_step, rmt_block_fusible,
-    )
+    from pyrmt_tpu.sim import RMTConfig, make_init_state, make_step
     import dataclasses
 
     g = Grid(Nx=48, Ny=48, Lx=1.0, Ly=1.0)
     cfg = RMTConfig(grid=g, mu_s=0.1, rho_s=1.0, mu_f=0.01, rho_f=1.0,
                     num_layers=3, CFL=0.2, dt_min_cap=1e-3)
     cfg_bic = dataclasses.replace(cfg, sl_interp="bicubic")
-    assert rmt_block_fusible(cfg, 1) and rmt_block_fusible(cfg_bic, 1)
     phi_inits = (lambda X, Y: jnp.sqrt((X - 0.6) ** 2 + (Y - 0.5) ** 2) - 0.25,)
     bc = make_lid_bc(1.0)
     # seed a Taylor-Green velocity so the solid actually advects within a few

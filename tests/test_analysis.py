@@ -1,4 +1,4 @@
-"""Post-processing/analysis layer smoke tests (no TPU, no long sims).
+"""Post-processing/analysis layer smoke tests (CPU only, no long sims).
 
 The analysis scripts mirror the reference's notebook layer
 (/root/reference/notebooks/plot_*.ipynb, helper/lid_driven_gif.py); these

@@ -52,17 +52,11 @@ def test_shift_noop_without_interface():
 
 def test_step_pins_area_and_gates_fusion():
     """phi_area_fix=True: the aux level set's smoothed area equals the t=0
-    target to f64 roundoff across steps of a coupled surface-tension run,
-    and the config correctly opts out of the fused RMT block (whose
-    in-kernel rebuild cannot see the shift)."""
+    target to f64 roundoff across steps of a coupled surface-tension run
+    (the shift is reapplied after the post-advection rebuild)."""
     from pyrmt_tpu.bcs import free_slip_box_bc
     from pyrmt_tpu.grid import Grid
-    from pyrmt_tpu.sim import (
-        RMTConfig,
-        make_init_state,
-        make_step,
-        rmt_block_fusible,
-    )
+    from pyrmt_tpu.sim import RMTConfig, make_init_state, make_step
 
     g = Grid(Nx=48, Ny=48, Lx=1.0, Ly=1.0)
 
@@ -72,7 +66,6 @@ def test_step_pins_area_and_gates_fusion():
     cfg = RMTConfig(grid=g, mu_s=1e-3, mu_f=1e-3, gamma=0.1,
                     w_t_cells=2.0, CFL=0.4, dt_min_cap=1e-3,
                     st_method="balanced", phi_area_fix=True)
-    assert not rmt_block_fusible(cfg, 1)
 
     step = make_step(cfg, free_slip_box_bc, (phi_init,), dtype=jnp.float64)
     s = make_init_state(cfg, (phi_init,), dtype=jnp.float64)

@@ -13,17 +13,14 @@ jax.vmap on the XLA compute paths. These tests pin:
   * jax.vmap over a batch of SimStates reproduces sequential runs
     (ensemble parameter sweeps in ONE compiled program).
 
-All on the CPU/f64 XLA paths (conftest) — the fused Pallas kernels define
-no VJP and are TPU-only defaults. make_diff_step closes that gap (fused
-forward, XLA-twin VJP): pinned below with the Pallas kernels in interpret
-mode.
+All on the CPU/f64 backend (conftest). make_diff_step (custom VJP with
+input-only residuals) is pinned below against make_rollout's gradients.
 """
 
 import pytest
 
 pytestmark = pytest.mark.slow  # full local tier only; fast tier = -m 'not slow'
 import dataclasses
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -56,11 +53,7 @@ def base_cfg(**over):
     kw = dict(
         grid=G, mu_s=0.3, kappa=0.0, eta_s=0.0, rho_s=1.0, mu_f=0.02,
         rho_f=1.0, fixed_dt=2.0e-3,
-        # XLA paths everywhere: Pallas kernels have no VJP (they are
-        # TPU-only defaults anyway; on CPU these ARE the defaults — set
-        # explicitly so the contract is visible)
-        extrap_method="xla", rmt_method="xla", momentum_method="xla",
-        dct_method="fft",
+        extrap_method="xla", dct_method="fft",
     )
     kw.update(over)
     return RMTConfig(**kw)
@@ -186,46 +179,29 @@ def test_vmap_ensemble_matches_sequential():
 
 
 # ---------------------------------------------------------------------------
-# make_diff_step: fused Pallas forward, XLA-twin backward (diff.py)
+# make_diff_step: custom VJP with input-only residuals (diff.py)
 # ---------------------------------------------------------------------------
 
-def _interpret_impls():
-    """The fused kernels in interpret mode — runs the REAL Pallas programs
-    on the CPU backend (same pattern as tests/test_pallas.py)."""
-    from pyrmt_tpu.kernels.momentum_rk4 import momentum_rk4_pallas
-    from pyrmt_tpu.kernels.rmt_block import rmt_block_fused
-    return dict(
-        rmt_block_impl=functools.partial(rmt_block_fused, interpret=True),
-        momentum_rk4_impl=functools.partial(momentum_rk4_pallas,
-                                            interpret=True),
-    )
-
-
-def test_diff_step_forward_is_fused_gradient_is_xla():
-    """dstep's forward IS the fused step (bitwise); its reverse-mode
-    gradient through a rollout matches the pure-XLA rollout's gradient
-    (the substituted Jacobian is the XLA twin's, evaluated along the
-    fused trajectory — pinned machine-identical in test_pallas.py) and
-    central finite differences of the fused forward itself."""
+def test_diff_step_forward_matches_step_and_grad_matches_rollout():
+    """dstep's forward IS the step (bitwise); its reverse-mode gradient
+    through a rollout matches make_rollout's gradient and central finite
+    differences."""
     n_steps = 4
-    fused_cfg = base_cfg(rmt_method="pallas", momentum_method="pallas")
+    cfg = base_cfg()
     bc = free_slip_box_bc
     u0, v0 = tg_velocity(0.5)
-    state0 = make_init_state(fused_cfg, (phi_disc,), u0=u0, v0=v0,
+    state0 = make_init_state(cfg, (phi_disc,), u0=u0, v0=v0,
                              dtype=jnp.float64)
 
-    dstep = make_diff_step(fused_cfg, bc, (phi_disc,), dtype=jnp.float64,
-                           **_interpret_impls())
-    fused_step = make_step(fused_cfg, bc, (phi_disc,), dtype=jnp.float64,
-                           **_interpret_impls())
+    dstep = make_diff_step(cfg, bc, (phi_disc,), dtype=jnp.float64)
+    step = make_step(cfg, bc, (phi_disc,), dtype=jnp.float64)
 
-    # forward parity: dstep == the fused step, field for field
     out_d = dstep(state0, T_END)
-    out_f, _ = fused_step(state0, T_END)
+    out_s, _ = step(state0, T_END)
     for name in ("u", "v", "p", "X1", "X2", "t"):
         np.testing.assert_array_equal(
             np.asarray(getattr(out_d, name)),
-            np.asarray(getattr(out_f, name)), err_msg=name)
+            np.asarray(getattr(out_s, name)), err_msg=name)
 
     droll = make_diff_rollout(dstep, n_steps)
 
@@ -234,20 +210,18 @@ def test_diff_step_forward_is_fused_gradient_is_xla():
                                  v=state0.v * amp)
         return final_energy(droll(s0, T_END))
 
-    # XLA-everything rollout: the gradient oracle
-    xla_step = make_step(base_cfg(), bc, (phi_disc,), dtype=jnp.float64)
-    xla_roll = make_rollout(xla_step, n_steps, remat=True)
+    roll = make_rollout(step, n_steps, remat=True)
 
-    def xla_loss(amp):
+    def roll_loss(amp):
         s0 = dataclasses.replace(state0, u=state0.u * amp,
                                  v=state0.v * amp)
-        return final_energy(xla_roll(s0, T_END))
+        return final_energy(roll(s0, T_END))
 
     g_diff = float(jax.grad(diff_loss)(1.0))
-    g_xla = float(jax.grad(xla_loss)(1.0))
-    assert abs(g_diff - g_xla) <= 1e-8 * max(1.0, abs(g_xla)), (g_diff, g_xla)
+    g_roll = float(jax.grad(roll_loss)(1.0))
+    assert abs(g_diff - g_roll) <= 1e-8 * max(1.0, abs(g_roll)), (g_diff,
+                                                                  g_roll)
 
-    # ...and against finite differences of the FUSED forward values
     loss_j = jax.jit(diff_loss)
     h = 1e-5
     fd = (float(loss_j(1.0 + h)) - float(loss_j(1.0 - h))) / (2 * h)
@@ -338,12 +312,9 @@ def test_grad_through_variable_rho_rollout():
 
 
 # ---------------------------------------------------------------------------
-# Traced physics-scalar params (round 5): make_step(traced_params=...) /
+# Traced physics-scalar params: make_step(traced_params=...) /
 # make_diff_step(param_names=...) take mu_s/kappa/gamma/rho_s/rho_f as a
-# RUNTIME dict — one compiled program across parameter values, with the
-# traced scalars reaching the fused RMT-block kernel as SMEM operands
-# (kernels/rmt_block.py), so the inverse-problem gradient keeps the fused
-# forward (VERDICT r4 #5).
+# RUNTIME dict — one compiled program across parameter values.
 # ---------------------------------------------------------------------------
 
 
@@ -413,52 +384,48 @@ def test_grad_mu_s_via_traced_params_adaptive_dt():
     assert abs(g - fd) <= 1e-5 * max(1.0, abs(fd)), (g, fd)
 
 
-def test_diff_step_param_names_fused_forward_mu_s_grad():
-    """The VERDICT-r4 #5 combination: make_diff_step(param_names=('mu_s',))
-    with the Pallas kernels in interpret mode — the fused forward consumes
-    the TRACED mu_s through its SMEM scalar operand, forward values equal
-    the fused step's, and the mu_s gradient equals the all-XLA
-    traced-params gradient and finite differences."""
+def test_diff_step_param_names_mu_s_grad():
+    """make_diff_step(param_names=('mu_s',)): forward values equal the
+    traced-params step's, and the mu_s gradient through the rollout equals
+    the plain traced-params scan's gradient and finite differences."""
     n_steps = 4
-    fused_cfg = base_cfg(rmt_method="pallas", momentum_method="pallas")
+    cfg = base_cfg()
     bc = free_slip_box_bc
     u0, v0 = tg_velocity(0.5)
-    state0 = make_init_state(fused_cfg, (phi_disc,), u0=u0, v0=v0,
+    state0 = make_init_state(cfg, (phi_disc,), u0=u0, v0=v0,
                              dtype=jnp.float64)
 
-    dstep = make_diff_step(fused_cfg, bc, (phi_disc,), dtype=jnp.float64,
-                           param_names=("mu_s",), **_interpret_impls())
-    fused_step = make_step(fused_cfg, bc, (phi_disc,), dtype=jnp.float64,
-                           traced_params=("mu_s",), **_interpret_impls())
+    dstep = make_diff_step(cfg, bc, (phi_disc,), dtype=jnp.float64,
+                           param_names=("mu_s",))
+    stepP = make_step(cfg, bc, (phi_disc,), dtype=jnp.float64,
+                      traced_params=("mu_s",))
 
     params = {"mu_s": jnp.asarray(0.3, jnp.float64)}
     out_d = dstep(state0, T_END, params)
-    out_f, _ = fused_step(state0, T_END, params)
+    out_s, _ = stepP(state0, T_END, params)
     for name in ("u", "v", "p", "X1", "X2", "t"):
         np.testing.assert_array_equal(
             np.asarray(getattr(out_d, name)),
-            np.asarray(getattr(out_f, name)), err_msg=name)
+            np.asarray(getattr(out_s, name)), err_msg=name)
 
     droll = make_diff_rollout(dstep, n_steps, with_params=True)
 
     def diff_loss(mu):
         return final_energy(droll(state0, T_END, {"mu_s": mu}))
 
-    xla_step = make_step(base_cfg(), bc, (phi_disc,), dtype=jnp.float64,
-                         traced_params=("mu_s",))
-
     @jax.jit
-    def xla_loss(mu):
+    def scan_loss(mu):
         def body(s, _):
-            s2, _a = xla_step(s, T_END, {"mu_s": mu})
+            s2, _a = stepP(s, T_END, {"mu_s": mu})
             return s2, None
         s, _ = jax.lax.scan(body, state0, None, length=n_steps)
         return final_energy(s)
 
     mu = jnp.asarray(0.3, jnp.float64)
     g_diff = float(jax.grad(diff_loss)(mu))
-    g_xla = float(jax.grad(xla_loss)(mu))
-    assert abs(g_diff - g_xla) <= 1e-8 * max(1.0, abs(g_xla)), (g_diff, g_xla)
+    g_scan = float(jax.grad(scan_loss)(mu))
+    assert abs(g_diff - g_scan) <= 1e-8 * max(1.0, abs(g_scan)), (g_diff,
+                                                                  g_scan)
 
     loss_j = jax.jit(diff_loss)
     h = 1e-5

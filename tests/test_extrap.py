@@ -1,7 +1,7 @@
 """Reference-map extrapolation: linear exactness + band growth.
 
 Mirrors tests/test_interp_extrap_energy.py:33-48 in the reference and adds
-band-coverage/idempotence checks for the layer-synchronous TPU formulation.
+band-coverage/idempotence checks for the layer-synchronous formulation.
 """
 
 import pytest
@@ -144,34 +144,3 @@ def test_strain_energy_matches_stress_no_lnJ():
     solid_area = np.sum(phi <= 0) * dx * dy
     expected = 0.5 * mu_s * (lam**2 - 1.0) * solid_area
     assert abs(se - expected) / expected < 0.05
-
-
-def test_fused_pallas_kernel_matches_xla_path():
-    """The single-pass Pallas kernel (all sweeps fused, tiled with halo) is
-    numerically identical to the layer-synchronous XLA path, including domain
-    edges (zero-fill window clipping) and halo==tile corner cases."""
-    import jax.numpy as jnp
-
-    from pyrmt_tpu.kernels.extrapolate_fused import (
-        extrapolate_reference_map_fused,
-    )
-    from pyrmt_tpu.ops.extrapolate import extrapolate_reference_map
-
-    N = 64
-    X, Y, dx, dy = create_grid(N, N, 1.0, 1.0, dtype=np.float64)
-    X, Y = np.asarray(X), np.asarray(Y)
-    cases = [
-        ((0.55, 0.45, 0.22), 3, 32),   # interior disc
-        ((0.08, 0.90, 0.15), 4, 16),   # domain-edge clip + halo == tile
-    ]
-    for (cx, cy, R), layers, tile in cases:
-        phi = np.sqrt((X - cx) ** 2 + (Y - cy) ** 2) - R
-        m = (phi < 0).astype(np.float64)
-        a1, a2 = extrapolate_reference_map(
-            jnp.asarray(X * m), jnp.asarray(Y * m), jnp.asarray(phi),
-            dx, dy, layers)
-        b1, b2 = extrapolate_reference_map_fused(
-            jnp.asarray(X * m), jnp.asarray(Y * m), jnp.asarray(phi),
-            dx, dy, layers, tile=tile, interpret=True)
-        assert np.allclose(np.asarray(a1), np.asarray(b1), atol=1e-12)
-        assert np.allclose(np.asarray(a2), np.asarray(b2), atol=1e-12)

@@ -189,7 +189,7 @@ def test_dct_eigenvalues_diagonalize_explicit_matrix():
 
 
 def test_dct_matmul_path_matches_fft_path():
-    """The MXU-matmul DCT-I lowering is the SAME transform as the rFFT one:
+    """The matmul DCT-I lowering is the SAME transform as the rFFT one:
     transforms match to roundoff and the Neumann solve is identical."""
     from pyrmt_tpu.ops.poisson import (
         dct1_2d_matmul,

@@ -197,7 +197,7 @@ def test_sharded_rebasing_matches_single_device():
 
 def test_rebuild_modes_match_cond_dispatch():
     """Round 5: the explicit rebuild modes ('analytic'/'sampled',
-    RMTConfig.map_rebase_rebuild — the TPU production knob, see
+    RMTConfig.map_rebase_rebuild — the two executables of
     make_rebase_runner) are each BITWISE the in-graph 'cond' dispatch in
     their own phase: 'analytic' while no rebase has fired, 'sampled' once
     every solid has rebased."""

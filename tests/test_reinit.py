@@ -1,7 +1,7 @@
 """Level-set reinitialisation: dispatcher + signed-distance accuracy.
 
 Mirrors the reference's tests/test_reinit.py; the 'fmm' method here is the
-TPU-native PDE-sweep substitute honouring the same behavioural tolerances.
+parallel PDE-sweep substitute honouring the same behavioural tolerances.
 """
 
 import pytest

@@ -63,60 +63,17 @@ def test_driver_dryrun_multichip():
     ge.dryrun_multichip(8)
 
 
-@pytest.mark.skipif(len(jax.devices()) < 4, reason="needs 4 virtual devices")
-def test_sharded_pallas_rmt_block_matches_single_device():
-    """The shard_map fast path (fused Pallas RMT block per shard + ppermute
-    halo exchange, interpret mode on CPU) equals the single-device XLA step
-    to roundoff over multiple steps."""
-    from jax.sharding import Mesh
-
-    g = Grid(Nx=64, Ny=64, Lx=1.0, Ly=1.0)
-    cfg = RMTConfig(grid=g, mu_s=0.1, eta_s=0.01, mu_f=0.01, rho_f=1.0,
-                    rho_s=1.0, num_layers=3, CFL=0.2, dt_min_cap=1e-3)
-    phi_init = _disc_phi(0.5, 0.5, 0.2)
-
-    step1 = make_step(cfg, free_slip_box_bc, (phi_init,), dtype=jnp.float64)
-    state = make_init_state(cfg, (phi_init,), dtype=jnp.float64)
-
-    # 4-way ROW sharding: local rows 16 == exchange halo (4*3+4)
-    mesh = Mesh(np.array(jax.devices()[:4]).reshape(4, 1), ("gy", "gx"))
-    from pyrmt_tpu.parallel.sharding import (
-        momentum_rk4_sharded_supported,
-        rmt_block_sharded_supported,
-    )
-
-    assert rmt_block_sharded_supported(mesh, g.Ny, g.Nx, cfg.num_layers, 1)
-    # the fused full-RK4 momentum kernel must also engage per shard here —
-    # otherwise this test silently stops covering it
-    assert momentum_rk4_sharded_supported(mesh, g.Ny, g.Nx, free_slip_box_bc)
-    stepN, shard = make_sharded_step(
-        cfg, free_slip_box_bc, (phi_init,), mesh, dtype=jnp.float64,
-        rmt_method="pallas", interpret=True)
-
-    ref, sh_state = state, shard(state)
-    t_end = jnp.asarray(1.0)
-    for _ in range(2):
-        ref, _ = step1(ref, t_end)
-        sh_state, _ = stepN(sh_state, t_end)
-
-    assert np.allclose(np.asarray(sh_state.u), np.asarray(ref.u), atol=1e-10)
-    assert np.allclose(np.asarray(sh_state.p), np.asarray(ref.p), atol=1e-10)
-    assert np.allclose(np.asarray(sh_state.X1), np.asarray(ref.X1), atol=1e-11)
-    assert np.allclose(np.asarray(sh_state.X2), np.asarray(ref.X2), atol=1e-11)
-
-
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 @pytest.mark.parametrize("mesh_shape", [(2, 2), (2, 4)])
-def test_sharded_pallas_2d_mesh_matches_single_device(mesh_shape):
-    """2D (row x column) decomposition of the fused Pallas kernels: every
-    device owns a rectangular block, halo exchange runs on BOTH mesh axes
-    (corners via the column exchange of the row-padded slab)."""
+def test_sharded_2d_mesh_matches_single_device(mesh_shape):
+    """2D (row x column) GSPMD decomposition: every device owns a
+    rectangular block, halo exchanges run on BOTH mesh axes."""
     from jax.sharding import Mesh
 
     g = Grid(Nx=64, Ny=64, Lx=1.0, Ly=1.0)
     cfg = RMTConfig(grid=g, mu_s=0.1, eta_s=0.01, mu_f=0.01, rho_f=1.0,
                     rho_s=1.0, num_layers=3, CFL=0.2, dt_min_cap=1e-3)
-    # off-centre disc so shard-local tile/panel skips take BOTH branches
+    # off-centre disc: the solid straddles shard boundaries unevenly
     phi_init = _disc_phi(0.35, 0.6, 0.2)
 
     step1 = make_step(cfg, free_slip_box_bc, (phi_init,), dtype=jnp.float64)
@@ -125,17 +82,8 @@ def test_sharded_pallas_2d_mesh_matches_single_device(mesh_shape):
     ny, nx = mesh_shape
     mesh = Mesh(np.array(jax.devices()[: ny * nx]).reshape(ny, nx),
                 ("gy", "gx"))
-    from pyrmt_tpu.parallel.sharding import (
-        momentum_rk4_sharded_supported,
-        rmt_block_sharded_supported,
-    )
-
-    # (2,4): local cols 16 == exchange halo — the tightest supported split
-    assert rmt_block_sharded_supported(mesh, g.Ny, g.Nx, cfg.num_layers, 1)
-    assert momentum_rk4_sharded_supported(mesh, g.Ny, g.Nx, free_slip_box_bc)
     stepN, shard = make_sharded_step(
-        cfg, free_slip_box_bc, (phi_init,), mesh, dtype=jnp.float64,
-        rmt_method="pallas", interpret=True)
+        cfg, free_slip_box_bc, (phi_init,), mesh, dtype=jnp.float64)
 
     ref, sh_state = state, shard(state)
     t_end = jnp.asarray(1.0)
@@ -147,39 +95,6 @@ def test_sharded_pallas_2d_mesh_matches_single_device(mesh_shape):
     assert np.allclose(np.asarray(sh_state.p), np.asarray(ref.p), atol=1e-10)
     assert np.allclose(np.asarray(sh_state.X1), np.asarray(ref.X1), atol=1e-11)
     assert np.allclose(np.asarray(sh_state.X2), np.asarray(ref.X2), atol=1e-11)
-
-
-@pytest.mark.skipif(len(jax.devices()) < 4, reason="needs 4 virtual devices")
-def test_sharded_pallas_unsupported_mesh_raises():
-    from jax.sharding import Mesh
-
-    g = Grid(Nx=64, Ny=64, Lx=1.0, Ly=1.0)
-    cfg = RMTConfig(grid=g, mu_s=0.1, rho_s=1.0, num_layers=3)
-    phi_init = _disc_phi(0.5, 0.5, 0.2)
-    # 8-way row sharding -> local rows 8 < halo 16: unsupported
-    mesh = Mesh(np.array(jax.devices()[:8]).reshape(8, 1), ("gy", "gx"))
-    with pytest.raises(ValueError):
-        make_sharded_step(cfg, free_slip_box_bc, (phi_init,), mesh,
-                          dtype=jnp.float64, rmt_method="pallas",
-                          interpret=True)
-
-
-@pytest.mark.skipif(len(jax.devices()) < 4, reason="needs 4 virtual devices")
-def test_sharded_pallas_unfusible_config_raises():
-    """An explicit rmt_method='pallas' must fail loudly (not silently
-    downgrade) when the CONFIG is not RMT-fusible, matching make_step's
-    fusibility conditions (reinit/scheme/CFL/sl_local)."""
-    from jax.sharding import Mesh
-
-    g = Grid(Nx=64, Ny=64, Lx=1.0, Ly=1.0)
-    cfg = RMTConfig(grid=g, mu_s=0.1, rho_s=1.0, num_layers=3,
-                    reinit_method="pde")  # not fusible
-    phi_init = _disc_phi(0.5, 0.5, 0.2)
-    mesh = Mesh(np.array(jax.devices()[:4]).reshape(4, 1), ("gy", "gx"))
-    with pytest.raises(ValueError):
-        make_sharded_step(cfg, free_slip_box_bc, (phi_init,), mesh,
-                          dtype=jnp.float64, rmt_method="pallas",
-                          interpret=True)
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
@@ -210,26 +125,11 @@ def test_sharded_bicubic_step_matches_single_device():
     assert np.allclose(np.asarray(out.u), np.asarray(ref.u), atol=1e-8)
     assert np.allclose(np.asarray(out.X1), np.asarray(ref.X1), atol=1e-8)
 
-    # round 4: bicubic is fused into the RMT-block kernel, so the explicit
-    # shard_map Pallas request now ENGAGES (per-shard kernel + 2D halo
-    # exchange, interpret mode on CPU) — and must match too. The kernel's
-    # explicit global-index stencil clipping is what makes the domain-edge
-    # taps correct against the zero exchange halos of edge shards.
-    stepP, shardP = make_sharded_step(cfg, free_slip_box_bc, (phi_init,),
-                                      mesh, dtype=jnp.float64,
-                                      rmt_method="pallas", interpret=True)
-    outP = shardP(state)
-    for _ in range(2):
-        outP, _ = stepP(outP, jnp.asarray(1.0))
-    assert np.allclose(np.asarray(outP.u), np.asarray(ref.u), atol=1e-8)
-    assert np.allclose(np.asarray(outP.X1), np.asarray(ref.X1), atol=1e-8)
-
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 def test_sharded_two_solid_contact_matches_single_device():
-    """S=2 + pairwise contact on the tightest supported (2,4) mesh: the
-    n-solid mixture blend, the contact force stencils, and the fused kernels
-    (S=2 RMT block per shard) must all partition correctly."""
+    """S=2 + pairwise contact on a (2,4) mesh: the n-solid mixture blend
+    and the contact force stencils must partition correctly."""
     from jax.sharding import Mesh
 
     g = Grid(Nx=64, Ny=64, Lx=1.0, Ly=1.0)
@@ -248,26 +148,18 @@ def test_sharded_two_solid_contact_matches_single_device():
                             X2=state.X2, t=state.t, step=state.step)
 
     mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("gy", "gx"))
-    from pyrmt_tpu.parallel.sharding import rmt_block_sharded_supported
+    stepX, shard = make_sharded_step(cfg, free_slip_box_bc, phi_inits, mesh,
+                                     dtype=jnp.float64)
 
-    assert rmt_block_sharded_supported(mesh, g.Ny, g.Nx, cfg.num_layers, 2)
-    stepN, shard = make_sharded_step(cfg, free_slip_box_bc, phi_inits, mesh,
-                                     dtype=jnp.float64, rmt_method="pallas",
-                                     interpret=True)
-    stepX, _ = make_sharded_step(cfg, free_slip_box_bc, phi_inits, mesh,
-                                 dtype=jnp.float64, rmt_method="xla")
-
-    ref, shp, shx = state, shard(state), shard(state)
+    ref, shx = state, shard(state)
     t_end = jnp.asarray(1.0)
     for _ in range(2):
         ref, aux_ref = step1(ref, t_end)
-        shp, _ = stepN(shp, t_end)
         shx, _ = stepX(shx, t_end)
 
-    for out in (shp, shx):
-        assert np.allclose(np.asarray(out.u), np.asarray(ref.u), atol=1e-10)
-        assert np.allclose(np.asarray(out.p), np.asarray(ref.p), atol=1e-10)
-        assert np.allclose(np.asarray(out.X1), np.asarray(ref.X1), atol=1e-11)
+    assert np.allclose(np.asarray(shx.u), np.asarray(ref.u), atol=1e-10)
+    assert np.allclose(np.asarray(shx.p), np.asarray(ref.p), atol=1e-10)
+    assert np.allclose(np.asarray(shx.X1), np.asarray(ref.X1), atol=1e-11)
     # the contact force must actually be active in this configuration
     phis = np.asarray(aux_ref["phis"])
     assert (np.abs(phis[0] - phis[1]) * 0.5 < 3 * g.dx)[
@@ -304,9 +196,9 @@ def test_sharded_variable_rho_matches_single_device():
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
-def test_sharded_pallas_long_horizon_matches_single_device():
-    """12-step horizon on the (2,4) mesh shard_map Pallas path: surfaces
-    slow halo-drift / collective-placement bugs the 2-step pins cannot."""
+def test_sharded_long_horizon_matches_single_device():
+    """12-step horizon on the (2,4) mesh: surfaces slow halo-drift /
+    collective-placement bugs the 2-step pins cannot."""
     from jax.sharding import Mesh
 
     g = Grid(Nx=64, Ny=64, Lx=1.0, Ly=1.0)
@@ -319,8 +211,7 @@ def test_sharded_pallas_long_horizon_matches_single_device():
 
     mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("gy", "gx"))
     stepN, shard = make_sharded_step(
-        cfg, free_slip_box_bc, (phi_init,), mesh, dtype=jnp.float64,
-        rmt_method="pallas", interpret=True)
+        cfg, free_slip_box_bc, (phi_init,), mesh, dtype=jnp.float64)
 
     ref, out = state, shard(state)
     t_end = jnp.asarray(1.0)
@@ -336,7 +227,7 @@ def test_sharded_pallas_long_horizon_matches_single_device():
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 def test_sharded_periodic_step_matches_single_device():
-    """Round-4: the doubly-periodic step under GSPMD — the FFT solve's
+    """The doubly-periodic step under GSPMD — the FFT solve's
     all-to-alls, the periodic wrap stencils' halo exchanges, and the
     overlap-row/col BC all partition correctly (nothing periodic was ever
     sharded before this test). Multi-step so the incremental pressure

@@ -189,7 +189,7 @@ def test_steps_past_t_end_are_noops_not_nans():
 
 
 def test_unknown_method_configs_raise():
-    """Bogus dct/extrap/momentum method strings fail loudly at trace time
+    """Bogus dct/extrap method strings fail loudly at trace time
     (same contract as the reference's unknown-scheme ValueError)."""
     import dataclasses
 
@@ -202,7 +202,7 @@ def test_unknown_method_configs_raise():
     g = Grid(Nx=17, Ny=17, Lx=1.0, Ly=1.0)
     cfg = RMTConfig(grid=g, mu_f=0.01, rho_f=1.0)
     bc = make_lid_bc(1.0)
-    for field in ("dct_method", "extrap_method", "momentum_method"):
+    for field in ("dct_method", "extrap_method"):
         bad = dataclasses.replace(cfg, **{field: "bogus"})
         with pytest.raises(ValueError):
             make_step(bad, bc, ())

@@ -6,18 +6,13 @@ hand-run drivers; nothing automated would catch a regression that spends the
 margin. This file runs the same drivers at CI-affordable sizes with pinned
 tolerances (each ~1.5-2x the measured value, far below the failure regime).
 
-Measured anchors on this backend (CPU f64, see benchmarks/README.md for the
-production TPU numbers and which config they use):
+Measured anchors on this backend (CPU f64; benchmarks/README.md has the
+full-size numbers):
   * Ghia Re=100 N=65  RMS 3.36e-3   (gate 5e-3)
   * Laplace N=48 gamma=.1 R=.25 rel err 0.76% csf (gate 1.5%); the
     balanced-force CSF must additionally not be worse
   * two-disc contact N=48 t=0.6: no pass-through, gap > 2R
   * density-contrast N=48 ratio 10: sinks, CG converged far below cap
-
-The production-gate config for recorded TPU numbers is documented in
-benchmarks/README.md: dct_precision='highest' recovers the roundoff-exact
-FFT-parity DCT when a validation run needs the full margin
-(docs/DESIGN.md deviation #6).
 """
 
 import pytest
